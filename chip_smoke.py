@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+1. Prints the card (name, power limit) and builds the CUDA kernels of
+   ``panopticsegforlargescalepointcloud_tpu_torch/csrc`` with ``nvcc``.
+2. Holds each kernel against its plain PyTorch version on the card, at the
+   shapes the main path gives it: A (sparse conv) on real maps of a
+   131,072-row hierarchy in bf16 and f32, B (dense min pull) at T = 49,152,
+   C (mean-shift update) at B = 4, S = 128, Np = 16,384, E = 5.
+3. Drives the main path, the eval forward of the flagship Setting IV model
+   (paper plan, in_feat 16, 9 classes, 4 tiles of synthetic NPM3D-scale
+   data, 131,072 rows, seeded random weights and BN statistics): once in f32
+   with the kernels and once with the plain versions, which must agree; then
+   in bf16 as shipped, timed per phase, with every kernel's launch count.
+4. Prints one ``{"kernels": [...]}`` line and, last, the
+   ``{"ok": true, "device": {...}}`` line.
+
+Any failed phase ends the run with a non-zero exit code and no result line.
+Without a CUDA device the script exits with code 2. Long outputs (the
+``nvcc -Xptxas -v`` log) go to ``chiprun_out/``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+# Published H100 SXM peaks: HBM bytes/s, dense
+# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60,
+    )
+    return res.stdout.strip().splitlines()[0] if res.stdout.strip() else "unknown"
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the three kernel call sites to their plain PyTorch versions
+    (for the kernel-against-plain comparison of the whole forward)."""
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow, meanshift
+    from panopticsegforlargescalepointcloud_tpu_torch.models import modules
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.conv import sparse_conv_plain
+
+    saved = (modules.sparse_conv, dense_grow.min_pull, meanshift.meanshift_update)
+
+    def ms_plain(seeds, x, pvalid, bandwidth):
+        return meanshift.shift_iter_plain(seeds, x, pvalid, float(bandwidth) ** 2)
+
+    modules.sparse_conv = sparse_conv_plain
+    dense_grow.min_pull = dense_grow.min_pull_plain
+    meanshift.meanshift_update = ms_plain
+    try:
+        yield
+    finally:
+        modules.sparse_conv, dense_grow.min_pull, meanshift.meanshift_update = saved
+
+
+def kernels():
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow, meanshift
+    from panopticsegforlargescalepointcloud_tpu_torch.ops import conv
+
+    return {"A": conv.KERNEL, "B": dense_grow.KERNEL, "C": meanshift.KERNEL}
+
+
+# ---------------------------------------------------------------- kernel phases
+
+
+def conv_shapes(cfg, hier):
+    """(label, map, Cin, Cout, N_in) at distinct convs of the paper plan's
+    first levels, plus the up path's 192 -> 192 (12f -> 12f) conv."""
+    f = cfg.in_feat
+    g = hier.grids
+    return [
+        ("L0 same 4->16", hier.same_maps[0], cfg.feat_dim, f, g[0].capacity),
+        ("L0 same 16->16", hier.same_maps[0], f, f, g[0].capacity),
+        ("L0->L1 down 16->16", hier.down_maps[0], f, f, g[0].capacity),
+        ("L1 same 16->32", hier.same_maps[1], f, 2 * f, g[1].capacity),
+        ("L1 same 32->32", hier.same_maps[1], 2 * f, 2 * f, g[1].capacity),
+        ("L1->L0 up 64->64", hier.up_maps[0], 4 * f, 4 * f, g[1].capacity),
+        ("L5->L4 up 192->192", hier.up_maps[4], 12 * f, 12 * f, g[5].capacity),
+    ]
+
+
+def phase_conv(cfg, hier, gen_seed: int):
+    """Kernel A against its plain version on the main path's maps."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.conv import (
+        sparse_conv,
+        sparse_conv_plain,
+    )
+
+    dev = hier.same_maps[0].device
+    gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    rows, fails, rep = [], [], None
+    for label, nbr, cin, cout, n_in in conv_shapes(cfg, hier):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((n_in, cin), generator=gen, device=dev).to(dt)
+            w = (torch.randn((27, cin, cout), generator=gen, device=dev)
+                 * math.sqrt(2.0 / (27 * cout))).to(dt)
+            got = sparse_conv(x, nbr, w)
+            want = sparse_conv_plain(x, nbr, w)
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            # both accumulate exact products (bf16 x bf16 is exact in f32) in
+            # f32, in different orders over up to 27 * Cin terms
+            tol = 1e-4 * max(scale, 1e-30)
+            ok = bool(torch.isfinite(got).all()) and err <= tol
+            nnz = int((nbr >= 0).sum())
+            esz = 2 if dt == torch.bfloat16 else 4
+            n_out = nbr.shape[0]
+            bytes_ = n_in * cin * esz + nbr.numel() * 4 + 27 * cin * cout * esz + n_out * cout * 4
+            flops = 2.0 * nnz * cin * cout
+            peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+            t_b, t_o = bytes_ / HBM_BPS * 1e3, flops / peak * 1e3
+            ms = cuda_ms(lambda: sparse_conv(x, nbr, w))
+            plain_ms = cuda_ms(lambda: sparse_conv_plain(x, nbr, w), iters=3, warmup=1)
+            idx_z = torch.where(nbr >= 0, nbr, n_in).long()
+            xz = torch.cat([x, x.new_zeros((1, cin))])
+            wf = w.reshape(27 * cin, cout)
+            lib_ms = cuda_ms(lambda: torch.matmul(xz[idx_z].reshape(n_out, 27 * cin), wf),
+                             iters=3, warmup=1)
+            rec = dict(shape=label, dtype=str(dt).split(".")[-1], n_out=n_out, nnz=nnz,
+                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
+                       ok=ok)
+            rows.append(rec)
+            log("A", json.dumps(rec))
+            if not ok:
+                fails.append(f"A {label} {rec['dtype']}: err {err} > tol {tol}")
+            if label == "L0 same 16->16" and dt == torch.bfloat16:
+                rep = rec
+    worst = max(r["max_abs_err"] for r in rows)
+    return rep, worst, fails
+
+
+def pull_operands(cfg, db, t: int, seed: int):
+    """Region-growing operands at the main path's shape: the first T thing
+    rows (by key order) of the batch, ids = batch * C + a random class."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster.dense_grow import _operands
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster.neighbors import cell_seed_labels
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster.region_grow import _fold_bits
+
+    dev = db.pos.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.nonzero(db.grid.mask).squeeze(1)[:t]
+    valid = torch.zeros(t, dtype=torch.bool, device=dev)
+    valid[: rows.shape[0]] = True
+    idx = torch.zeros(t, dtype=torch.long, device=dev)
+    idx[: rows.shape[0]] = rows
+    pos = db.pos[idx]
+    cls = torch.randint(0, cfg.num_classes, (t,), generator=gen, device=dev, dtype=torch.int32)
+    ids = (db.grid.batch[idx] * cfg.num_classes + cls).to(torch.int32)
+    qmat, smat = _operands(pos, valid)
+    num_ids = cfg.num_samples * cfg.num_classes
+    init = cell_seed_labels(pos, ids, valid, cfg.cluster_radius, _fold_bits(num_ids),
+                            num_ids=num_ids)
+    return qmat, smat, ids.contiguous(), init.float().contiguous()
+
+
+def phase_pull(cfg, db, t: int):
+    """Kernel B against its plain version: identical results expected."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster.dense_grow import (
+        min_pull,
+        min_pull_plain,
+    )
+
+    qmat, smat, ids, labels = pull_operands(cfg, db, t, seed=3)
+    r2 = float(cfg.cluster_radius) ** 2
+    got = min_pull(qmat, smat, ids, labels, r2)
+    want = min_pull_plain(qmat, smat, ids, labels, r2)
+    torch.cuda.synchronize()
+    same = (got == want) | (torch.isinf(got) & torch.isinf(want))
+    ndiff = int((~same).sum())
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+    ok = ndiff <= 1e-4 * t
+    ms = cuda_ms(lambda: min_pull(qmat, smat, ids, labels, r2), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: min_pull_plain(qmat, smat, ids, labels, r2), iters=2, warmup=1)
+    # the function needs 4 of each operand's 8 rows (the rest are 1 or 0),
+    # ids, labels and the output; per pair 3 multiplies and 4 adds
+    bytes_ = 2 * 4 * t * 4 + 3 * t * 4
+    ops = 7.0 * t * t
+    t_b, t_o = bytes_ / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+    rec = dict(t=t, differing_rows=ndiff, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations", ok=ok)
+    log("B", json.dumps(rec))
+    fails = [] if ok else [f"B: {ndiff} of {t} rows differ"]
+    return rec, fails
+
+
+def phase_meanshift(bsz: int, s: int, np_: int, e: int, bandwidth: float, seed: int):
+    """Kernel C against its plain version: counts exact, means rtol 1e-5."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster.meanshift import (
+        _bin_seeds,
+        meanshift_update,
+        shift_iter_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn((bsz, 24, e), generator=gen, device=dev) * 2.0
+    pick = torch.randint(0, 24, (bsz, np_), generator=gen, device=dev)
+    x = (torch.gather(centers, 1, pick[..., None].expand(bsz, np_, e))
+         + 0.3 * torch.randn((bsz, np_, e), generator=gen, device=dev)).contiguous()
+    pvalid = torch.rand((bsz, np_), generator=gen, device=dev) > 0.1
+    seeds, _ = _bin_seeds(x, pvalid, bandwidth, s)
+    seeds = seeds.contiguous()
+    bw2 = bandwidth * bandwidth
+    got, gcnt = meanshift_update(seeds, x, pvalid, bandwidth)
+    want, wcnt = shift_iter_plain(seeds, x, pvalid, bw2)
+    torch.cuda.synchronize()
+    cnt_ok = bool(torch.equal(gcnt, wcnt))
+    err = float((got - want).abs().max())
+    mean_ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+    ms = cuda_ms(lambda: meanshift_update(seeds, x, pvalid, bandwidth), iters=20)
+    plain_ms = cuda_ms(lambda: shift_iter_plain(seeds, x, pvalid, bw2), iters=5)
+    pairs = bsz * s * np_
+    bytes_ = (2 * bsz * s * e + bsz * np_ * e + bsz * np_ + bsz * s) * 4
+    ops = pairs * (2.0 * e + 3)
+    t_b, t_o = bytes_ / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+    rec = dict(b=bsz, s=s, np=np_, e=e, counts_equal=cnt_ok, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations", ok=cnt_ok and mean_ok)
+    log("C", json.dumps(rec))
+    fails = [] if rec["ok"] else [f"C: counts equal {cnt_ok}, max err {err}"]
+    return rec, fails
+
+
+# ------------------------------------------------------------------- main path
+
+
+class PhaseTimer:
+    """Host clock around each phase, ending in a device synchronize."""
+
+    def __init__(self):
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
+def check_output(cfg, db, out):
+    import torch
+
+    n = db.grid.capacity
+    shapes = {
+        "semantic_logits": (n, cfg.num_classes), "offset_logits": (n, 3),
+        "embed_logits": (n, cfg.embed_dim), "backbone_feats": (n, cfg.in_feat),
+        "cluster_scores": (cfg.total_props,),
+    }
+    fails = []
+    for k, shp in shapes.items():
+        v = getattr(out, k)
+        if tuple(v.shape) != shp or not bool(torch.isfinite(v).all()):
+            fails.append(f"{k}: shape {tuple(v.shape)} (want {shp}) or non-finite values")
+    probs = out.semantic_logits[db.grid.mask].float().exp().sum(-1)
+    if not bool(torch.allclose(probs, torch.ones_like(probs), atol=1e-3)):
+        fails.append("semantic log-probs do not normalize")
+    return fails
+
+
+def main_path_f32(cfg32, arrays, seed: int):
+    """f32 forward with the kernels and with the plain versions on the card."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import random_model
+    from panopticsegforlargescalepointcloud_tpu_torch.train import make_eval_forward
+
+    model = random_model(cfg32, seed)
+    fwd = make_eval_forward(cfg32, model)
+    _, k_out = fwd(arrays)
+    with plain_kernels():
+        db, p_out = fwd(arrays)
+    torch.cuda.synchronize()
+    fails = check_output(cfg32, db, k_out)
+    res = {}
+    for k in ("semantic_logits", "offset_logits", "embed_logits", "backbone_feats"):
+        a, b = getattr(k_out, k), getattr(p_out, k)
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        # 70 f32 convs, each summing in another order than the plain GEMMs
+        tol = 1e-3 * max(scale, 1e-30)
+        res[k] = dict(max_abs_err=err, scale=scale, ok=err <= tol)
+        if err > tol:
+            fails.append(f"f32 {k}: err {err} > {tol}")
+    same = float((k_out.proposals.prop_id == p_out.proposals.prop_id).float().mean())
+    res["membership_rows_identical"] = same
+    res["valid_proposals"] = int(k_out.proposals.prop_valid.sum())
+    if same < 0.999:
+        fails.append(f"f32 membership rows identical {same} < 0.999")
+    sc = (k_out.cluster_scores - p_out.cluster_scores).abs().max()
+    res["scores_max_abs_err"] = float(sc)
+    log("main path f32 kernel vs plain", json.dumps(res))
+    return fails
+
+
+def main_path_bf16(cfg, arrays, seed: int, repeats: int, hier_overflow):
+    """The shipped bf16 forward: launch counts of one run, then timings.
+    ``hier_overflow`` comes from the hierarchy built on the same inputs."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import random_model
+    from panopticsegforlargescalepointcloud_tpu_torch.train import make_eval_forward
+
+    model = random_model(cfg, seed)
+    fwd = make_eval_forward(cfg, model)
+    fwd(arrays)  # warm-up (allocator, first launches)
+    torch.cuda.synchronize()
+    for k in kernels().values():
+        k.launches = 0
+    db, out = fwd(arrays)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels().items()}
+    fails = check_output(cfg, db, out)
+    fails += [f"kernel {n} not launched on the main path" for n, c in launches.items() if c <= 0]
+    totals = []
+    timers = []
+    for _ in range(repeats):
+        timer = PhaseTimer()
+        tfwd = make_eval_forward(cfg, model, timer=timer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tfwd(arrays)
+        torch.cuda.synchronize()
+        totals.append((time.perf_counter() - t0) * 1e3)
+        timers.append(timer.ms)
+    plain_total = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(arrays)
+        torch.cuda.synchronize()
+        plain_total.append((time.perf_counter() - t0) * 1e3)
+    res = dict(
+        ms_per_forward_untimed_phases=plain_total,
+        ms_per_forward_with_phase_syncs=totals,
+        phases_ms=timers,
+        hier_overflow=hier_overflow,
+        cluster_overflow=int(out.cluster_overflow),
+        scorer_overflow=int(out.scorer_overflow),
+        valid_proposals=int(out.proposals.prop_valid.sum()),
+        valid_rows=int(db.grid.mask.sum()),
+        launches_per_forward=launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    log("main path bf16", json.dumps(res))
+    return launches, fails
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing run",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from panopticsegforlargescalepointcloud_tpu_torch import _cuda
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import build_inputs, flagship_config
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hierarchy
+    from panopticsegforlargescalepointcloud_tpu_torch.train import canonicalize
+
+    log(card_line())
+    t0 = time.perf_counter()
+    _cuda.build(verbose=True)
+    _cuda.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as fh:
+        fh.write(_cuda.build_log)
+
+    fails = []
+    cfg = flagship_config(num_samples=4, compute_dtype="bfloat16")
+    log("config:", json.dumps(dataclasses.asdict(cfg)))
+    arrays = build_inputs()
+    db = canonicalize(*arrays)
+    hier = build_hierarchy(db.grid, cfg.num_down)
+    t = cfg.resolved_point_cap(db.grid.capacity)
+
+    a_rep, a_err, f = phase_conv(cfg, hier, gen_seed=1)
+    fails += f
+    b_rec, f = phase_pull(cfg, db, t)
+    fails += f
+    c_rec, f = phase_meanshift(cfg.num_samples, cfg.ms_max_seeds, cfg.ms_point_cap,
+                               cfg.embed_dim, cfg.bandwidth, seed=2)
+    fails += f
+    for k in kernels().values():
+        k.launches = 0  # kernel-phase launches do not count for the main path
+
+    fails += main_path_f32(dataclasses.replace(cfg, compute_dtype="float32"), arrays, seed=5)
+    launches, f = main_path_bf16(cfg, arrays, seed=5, repeats=3,
+                                 hier_overflow=hier.overflow.tolist())
+    fails += f
+
+    ks = kernels()
+    entries = []
+    for key, rec, err in (("A", a_rep, a_err), ("B", b_rec, b_rec["max_abs_err"]),
+                          ("C", c_rec, c_rec["max_abs_err"])):
+        k = ks[key]
+        entries.append(dict(
+            name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+            launches=launches[key], max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+        ))
+    if fails:
+        for msg in fails:
+            print("FAIL:", msg, file=sys.stderr)
+        return 1
+    log(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,74 @@
+"""The flagship configuration, its synthetic inputs and seeded random
+weights, shared by ``chip_smoke.py`` and :mod:`.trace_eval`.
+
+Setting IV (``conf/models/panoptic/area4_ablation_3heads_5.yaml``) on the
+NPM3D 0.12 m data yaml; inputs as the JAX package's ``bench.py:build_inputs``
+(4 synthetic 16 m cylinders in 131,072 rows).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from .config import load_config, panoptic_config_from_yaml
+from .data import collate_tiles, synthetic_tile
+from .models import PanopticConfig, PointGroup3HeadsNet
+
+CONF_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "conf")
+
+
+def flagship_config(num_samples: int = 4, compute_dtype: str = "bfloat16",
+                    **overrides) -> PanopticConfig:
+    ycfg = load_config(CONF_DIR, [
+        "data=panoptic/npm3d-sparseconv_grid_012_R_16_cylinder_area1",
+        "models=panoptic/area4_ablation_3heads_5",
+        "model_name=PointGroup-PAPER",
+    ])
+    return panoptic_config_from_yaml(ycfg, num_samples=num_samples,
+                                     compute_dtype=compute_dtype, **overrides)
+
+
+def build_inputs(num_tiles: int = 4, capacity: int = 131072, seed: int = 0,
+                 radius: float = 16.0, grid_size: float = 0.12, n_instances: int = 24,
+                 pts_per_instance: int = 400):
+    """Batch arrays (numpy, in ``batch_arrays`` order) of synthetic
+    NPM3D-scale cylinders."""
+    rng = np.random.default_rng(seed)
+    tiles = [
+        synthetic_tile(rng, num_classes=9, stuff_classes=(0, 7, 8),
+                       n_instances=n_instances, pts_per_instance=pts_per_instance,
+                       n_ground=capacity // num_tiles, radius=radius, grid_size=grid_size)
+        for _ in range(num_tiles)
+    ]
+    vb = collate_tiles(tiles, capacity=capacity, num_tiles=num_tiles)
+    return (vb.coords, vb.batch, vb.mask, vb.feats, vb.pos, vb.y, vb.instance_labels,
+            vb.vote_label, vb.origin_id)
+
+
+def random_model(cfg: PanopticConfig, seed: int) -> PointGroup3HeadsNet:
+    """The model with seeded random weights and non-trivial BN running
+    statistics (conv kernels normal with std sqrt(2 / (27 * Cout)), as the
+    reference's kaiming fan-out init)."""
+    gen = torch.Generator().manual_seed(seed)
+    model = PointGroup3HeadsNet(cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "kernel":
+                p.copy_(torch.randn(p.shape, generator=gen) * math.sqrt(2.0 / (27 * p.shape[2])))
+            elif leaf == "weight":
+                p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(p.shape[1]))
+            elif leaf == "scale":
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+            else:  # bias
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        for name, b in model.named_buffers():
+            if name.endswith(".mean"):
+                b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+            elif name.endswith(".var"):
+                b.copy_(0.5 + torch.rand(b.shape, generator=gen))
+    return model

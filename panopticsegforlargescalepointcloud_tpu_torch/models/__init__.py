@@ -1,0 +1,13 @@
+from .pointgroup3heads import (
+    PanopticConfig,
+    PanopticOutput,
+    PointGroup3HeadsNet,
+    Proposals,
+    build_proposals,
+    scorer_inputs,
+)
+
+__all__ = [
+    "PanopticConfig", "PanopticOutput", "PointGroup3HeadsNet", "Proposals",
+    "build_proposals", "scorer_inputs",
+]

@@ -6,15 +6,24 @@
 1. Prints the card (name, power limit) and builds the CUDA kernels of
    ``panopticsegforlargescalepointcloud_tpu_torch/csrc`` with ``nvcc``.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it: A (sparse conv) on real maps of a
-   131,072-row hierarchy in bf16 and f32, B (dense min pull) at T = 49,152,
-   C (mean-shift update) at B = 4, S = 128, Np = 16,384, E = 5.
-3. Drives the main path, the eval forward of the flagship Setting IV model
-   (paper plan, in_feat 16, 9 classes, 4 tiles of synthetic NPM3D-scale
-   data, 131,072 rows, seeded random weights and BN statistics): once in f32
-   with the kernels and once with the plain versions, which must agree; then
-   in bf16 as shipped, timed per phase, with every kernel's launch count.
-4. Prints one ``{"kernels": [...]}`` line and, last, the
+   shapes the main paths give it: A (sparse conv) and D (conv weight
+   gradient) on real maps of a 131,072-row hierarchy in bf16 and f32, B
+   (dense min pull) at T = 49,152, C (mean-shift update) at B = 4, S = 128,
+   Np = 16,384, E = 5. Then the conv's backward (dX by A on the transpose
+   map, dW by D) against autograd of the plain gather conv, at A's shapes.
+3. Drives the first main path, the eval forward of the flagship Setting IV
+   model (paper plan, in_feat 16, 9 classes, 4 tiles of synthetic
+   NPM3D-scale data, 131,072 rows, seeded random weights and BN
+   statistics): once in f32 with the kernels and once with the plain
+   versions, which must agree; then in bf16 as shipped, timed per phase,
+   with every kernel's launch count.
+4. Drives the second main path, the train step of the same model from the
+   JAX package's initializers (Adam, lr 0.001, BN momentum 0.1): one f32
+   full step with the kernels and one with the plain versions, which must
+   agree on losses, gradients and proposals; then the shipped bf16 steps, 5
+   prepare and 3 full, timed per step and per phase, with launches per step
+   and peak memory.
+5. Prints one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase ends the run with a non-zero exit code and no result line.
@@ -25,10 +34,12 @@ Without a CUDA device the script exits with code 2. Long outputs (the
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -74,49 +85,69 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the three kernel call sites to their plain PyTorch versions
-    (for the kernel-against-plain comparison of the whole forward)."""
+    """Route every kernel call site to its plain PyTorch version: the conv
+    forward and, inside the conv's autograd Function, its dX and dW; the
+    dense pull; the mean-shift update (for the kernel-against-plain
+    comparisons of the whole forward and train step)."""
     from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow, meanshift
-    from panopticsegforlargescalepointcloud_tpu_torch.models import modules
-    from panopticsegforlargescalepointcloud_tpu_torch.ops.conv import sparse_conv_plain
+    from panopticsegforlargescalepointcloud_tpu_torch.ops import conv
 
-    saved = (modules.sparse_conv, dense_grow.min_pull, meanshift.meanshift_update)
+    saved = (conv.sparse_conv_fwd, conv.sparse_conv_dw, dense_grow.min_pull,
+             meanshift.meanshift_update)
+
+    def conv_plain(feats, idx, weights, kernel=None):
+        return conv.sparse_conv_plain(feats, idx, weights)
 
     def ms_plain(seeds, x, pvalid, bandwidth):
         return meanshift.shift_iter_plain(seeds, x, pvalid, float(bandwidth) ** 2)
 
-    modules.sparse_conv = sparse_conv_plain
+    conv.sparse_conv_fwd = conv_plain
+    conv.sparse_conv_dw = conv.sparse_conv_dw_plain
     dense_grow.min_pull = dense_grow.min_pull_plain
     meanshift.meanshift_update = ms_plain
     try:
         yield
     finally:
-        modules.sparse_conv, dense_grow.min_pull, meanshift.meanshift_update = saved
+        (conv.sparse_conv_fwd, conv.sparse_conv_dw, dense_grow.min_pull,
+         meanshift.meanshift_update) = saved
 
 
 def kernels():
+    """Launch counters: kernel A counts its forward and its dX role apart."""
     from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow, meanshift
     from panopticsegforlargescalepointcloud_tpu_torch.ops import conv
 
-    return {"A": conv.KERNEL, "B": dense_grow.KERNEL, "C": meanshift.KERNEL}
+    return {"A": conv.KERNEL, "A_dx": conv.KERNEL_DX, "B": dense_grow.KERNEL,
+            "C": meanshift.KERNEL, "D": conv.KERNEL_DW}
+
+
+def reset_counts():
+    for k in kernels().values():
+        k.launches = 0
+
+
+def read_counts():
+    return {name: k.launches for name, k in kernels().items()}
 
 
 # ---------------------------------------------------------------- kernel phases
 
 
 def conv_shapes(cfg, hier):
-    """(label, map, Cin, Cout, N_in) at distinct convs of the paper plan's
-    first levels, plus the up path's 192 -> 192 (12f -> 12f) conv."""
+    """(label, map, Cin, Cout, N_in, transpose map) at distinct convs of the
+    paper plan's first levels, plus the up path's 192 -> 192 (12f -> 12f)
+    conv."""
     f = cfg.in_feat
     g = hier.grids
+    s, d, u = hier.same_maps, hier.down_maps, hier.up_maps
     return [
-        ("L0 same 4->16", hier.same_maps[0], cfg.feat_dim, f, g[0].capacity),
-        ("L0 same 16->16", hier.same_maps[0], f, f, g[0].capacity),
-        ("L0->L1 down 16->16", hier.down_maps[0], f, f, g[0].capacity),
-        ("L1 same 16->32", hier.same_maps[1], f, 2 * f, g[1].capacity),
-        ("L1 same 32->32", hier.same_maps[1], 2 * f, 2 * f, g[1].capacity),
-        ("L1->L0 up 64->64", hier.up_maps[0], 4 * f, 4 * f, g[1].capacity),
-        ("L5->L4 up 192->192", hier.up_maps[4], 12 * f, 12 * f, g[5].capacity),
+        ("L0 same 4->16", s[0], cfg.feat_dim, f, g[0].capacity, s[0]),
+        ("L0 same 16->16", s[0], f, f, g[0].capacity, s[0]),
+        ("L0->L1 down 16->16", d[0], f, f, g[0].capacity, u[0]),
+        ("L1 same 16->32", s[1], f, 2 * f, g[1].capacity, s[1]),
+        ("L1 same 32->32", s[1], 2 * f, 2 * f, g[1].capacity, s[1]),
+        ("L1->L0 up 64->64", u[0], 4 * f, 4 * f, g[1].capacity, d[0]),
+        ("L5->L4 up 192->192", u[4], 12 * f, 12 * f, g[5].capacity, d[4]),
     ]
 
 
@@ -132,7 +163,7 @@ def phase_conv(cfg, hier, gen_seed: int):
     dev = hier.same_maps[0].device
     gen = torch.Generator(device=dev).manual_seed(gen_seed)
     rows, fails, rep = [], [], None
-    for label, nbr, cin, cout, n_in in conv_shapes(cfg, hier):
+    for label, nbr, cin, cout, n_in, _ in conv_shapes(cfg, hier):
         for dt in (torch.bfloat16, torch.float32):
             x = torch.randn((n_in, cin), generator=gen, device=dev).to(dt)
             w = (torch.randn((27, cin, cout), generator=gen, device=dev)
@@ -172,6 +203,96 @@ def phase_conv(cfg, hier, gen_seed: int):
                 rep = rec
     worst = max(r["max_abs_err"] for r in rows)
     return rep, worst, fails
+
+
+def phase_dw(cfg, hier, gen_seed: int):
+    """Kernel D against its plain version at A's shapes: dW of each conv."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.conv import (
+        sparse_conv_dw,
+        sparse_conv_dw_plain,
+    )
+
+    dev = hier.same_maps[0].device
+    gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    rows, fails, rep = [], [], None
+    for label, nbr, cin, cout, n_in, _ in conv_shapes(cfg, hier):
+        n_out = nbr.shape[0]
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((n_in, cin), generator=gen, device=dev).to(dt)
+            g = torch.randn((n_out, cout), generator=gen, device=dev).to(dt)
+            got = sparse_conv_dw(x, nbr, g)
+            want = sparse_conv_dw_plain(x, nbr, g)
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            # exact products (bf16 x bf16 is exact in f32) summed in f32 over
+            # up to 131,072 rows, in another order than the plain GEMMs
+            tol = 1e-4 * max(scale, 1e-30)
+            ok = bool(torch.isfinite(got).all()) and err <= tol
+            nnz = int((nbr >= 0).sum())
+            esz = 2 if dt == torch.bfloat16 else 4
+            bytes_ = (n_in * cin + n_out * cout) * esz + nbr.numel() * 4 + 27 * cin * cout * 4
+            flops = 2.0 * nnz * cin * cout
+            peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+            t_b, t_o = bytes_ / HBM_BPS * 1e3, flops / peak * 1e3
+            ms = cuda_ms(lambda: sparse_conv_dw(x, nbr, g))
+            plain_ms = cuda_ms(lambda: sparse_conv_dw_plain(x, nbr, g), iters=3, warmup=1)
+            idx_z = torch.where(nbr >= 0, nbr, n_in).long()
+            xz = torch.cat([x, x.new_zeros((1, cin))])
+            lib_ms = cuda_ms(lambda: torch.matmul(xz[idx_z].reshape(n_out, 27 * cin).T, g),
+                             iters=3, warmup=1)
+            rec = dict(shape=label, dtype=str(dt).split(".")[-1], n_out=n_out, nnz=nnz,
+                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
+                       ok=ok)
+            rows.append(rec)
+            log("D", json.dumps(rec))
+            if not ok:
+                fails.append(f"D {label} {rec['dtype']}: err {err} > tol {tol}")
+            if label == "L0 same 16->16" and dt == torch.bfloat16:
+                rep = rec
+    worst = max(r["max_abs_err"] for r in rows)
+    return rep, worst, fails
+
+
+def phase_backward(cfg, hier, gen_seed: int):
+    """The conv's backward on the card (dX by A on the transpose map, dW by
+    D) against autograd of the plain gather conv, whose gather VJP is a
+    scatter-add and needs no transpose map: the transpose identity on the
+    flagship's real maps. f32."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.conv import (
+        sparse_conv,
+        sparse_conv_plain,
+    )
+
+    dev = hier.same_maps[0].device
+    gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    fails, res = [], []
+    for label, nbr, cin, cout, n_in, nbr_t in conv_shapes(cfg, hier):
+        x = torch.randn((n_in, cin), generator=gen, device=dev)
+        w = torch.randn((27, cin, cout), generator=gen, device=dev) * math.sqrt(2.0 / (27 * cout))
+        g = torch.randn((nbr.shape[0], cout), generator=gen, device=dev)
+        xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+        got = torch.autograd.grad(sparse_conv(xk, nbr, wk, nbr_t), (xk, wk), g)
+        xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+        want = torch.autograd.grad(sparse_conv_plain(xp, nbr, wp), (xp, wp), g)
+        torch.cuda.synchronize()
+        rec = dict(shape=label)
+        for name, a, b in (("dx", got[0], want[0]), ("dw", got[1], want[1])):
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            # f32 sums in another order (scatter-add atomics on the oracle side)
+            tol = 1e-4 * max(scale, 1e-30)
+            rec[name] = dict(max_abs_err=err, scale=scale)
+            if not (bool(torch.isfinite(a).all()) and err <= tol):
+                fails.append(f"backward {label} {name}: err {err} > tol {tol}")
+        res.append(rec)
+    log("conv backward vs scatter-add autograd", json.dumps(res))
+    return fails
 
 
 def pull_operands(cfg, db, t: int, seed: int):
@@ -361,13 +482,16 @@ def main_path_bf16(cfg, arrays, seed: int, repeats: int, hier_overflow):
     fwd = make_eval_forward(cfg, model)
     fwd(arrays)  # warm-up (allocator, first launches)
     torch.cuda.synchronize()
-    for k in kernels().values():
-        k.launches = 0
+    reset_counts()
     db, out = fwd(arrays)
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in kernels().items()}
+    launches = read_counts()
     fails = check_output(cfg, db, out)
-    fails += [f"kernel {n} not launched on the main path" for n, c in launches.items() if c <= 0]
+    fails += [f"kernel {n} not launched on the eval forward" for n in ("A", "B", "C")
+              if launches[n] <= 0]
+    # the forward runs under no_grad: no backward kernel may launch
+    fails += [f"backward kernel {n} launched on the eval forward" for n in ("A_dx", "D")
+              if launches[n] != 0]
     totals = []
     timers = []
     for _ in range(repeats):
@@ -400,6 +524,134 @@ def main_path_bf16(cfg, arrays, seed: int, repeats: int, hier_overflow):
     )
     log("main path bf16", json.dumps(res))
     return launches, fails
+
+
+def train_step_f32(cfg32, arrays, seed: int):
+    """One f32 full train step with the kernels and one with the plain
+    versions, from the same weights: losses, every gradient and the
+    proposals of the train-mode forward must agree. A third step, plain,
+    from input features moved by about one f32 ulp, measures how far f32
+    rounding alone moves the gradients: the backward runs through 35
+    train-mode BN layers at 131,072 rows and is ill-conditioned."""
+    import numpy as np
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import flagship_training
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hierarchy
+    from panopticsegforlargescalepointcloud_tpu_torch.train import (
+        canonicalize,
+        make_train_step,
+        panoptic_forward,
+    )
+
+    nudged = list(arrays)
+    noise = np.random.default_rng(seed).standard_normal(arrays[3].shape)
+    nudged[3] = (arrays[3] * (1.0 + 2.0**-23 * noise)).astype(np.float32)
+    runs = {}
+    for name, ctx, arr in (("kernels", contextlib.nullcontext, arrays),
+                           ("plain", plain_kernels, arrays),
+                           ("plain_nudged", plain_kernels, tuple(nudged))):
+        state, schedule, tc = flagship_training(cfg32, seed)
+        with ctx():
+            with torch.no_grad():
+                db = canonicalize(*arr)
+                hier = build_hierarchy(db.grid, cfg32.num_down)
+                twin = copy.deepcopy(state.model).train()
+                props = panoptic_forward(cfg32, twin, db, hier, True, state.bn_momentum).proposals
+            step = make_train_step(cfg32, state.model, state.optimizer, schedule, True,
+                                   tc.grad_clip_value)
+            metrics = step(arr, state.bn_momentum)
+        torch.cuda.synchronize()
+        runs[name] = (metrics, {n: p.grad for n, p in state.model.named_parameters()}, props)
+    (km, kg, kp), (pm, pg, pp), (_, ng, _) = runs["kernels"], runs["plain"], runs["plain_nudged"]
+    fails = []
+    losses = {}
+    for k in pm:
+        a, b = float(km[k]), float(pm[k])
+        losses[k] = (a, b)
+        # f32 through 90 convs and their backward, summed in other orders
+        if not (math.isfinite(a) and abs(a - b) <= 1e-4 * max(abs(b), 1.0)):
+            fails.append(f"f32 train step {k}: kernels {a} vs plain {b}")
+    stats = {}
+    for n, b in pg.items():
+        a = kg[n]
+        scale = float(b.abs().max())
+        stats[n] = dict(max_rel=float((a - b).abs().max()) / max(scale, 1e-30),
+                        nudged_max_rel=float((ng[n] - b).abs().max()) / max(scale, 1e-30))
+        # 2e-2 of the tensor's max |g|: the nudged plain step moves single
+        # gradients by up to about 1e-2 (measured here, "nudged_max_rel"),
+        # and the kernels round differently in each of 90 convs
+        if not (bool(torch.isfinite(a).all()) and stats[n]["max_rel"] <= 2e-2):
+            fails.append(f"f32 train step grad {n}: {stats[n]}")
+    with open(os.path.join(OUT_DIR, "train_f32_grads.json"), "w") as fh:
+        json.dump(stats, fh, indent=0)
+    summary = {}
+    for key in ("max_rel", "nudged_max_rel"):
+        vals = sorted(v[key] for v in stats.values())
+        worst = max(stats, key=lambda n: stats[n][key])
+        summary[key] = dict(median=vals[len(vals) // 2], max=vals[-1], worst=worst)
+    same = float((kp.prop_id == pp.prop_id).float().mean())
+    if same < 0.999:
+        fails.append(f"f32 train step membership rows identical {same} < 0.999")
+    log("train step f32 kernel vs plain", json.dumps(dict(
+        losses=losses, grads_over_max=summary, membership_rows_identical=same,
+        valid_proposals=int(kp.prop_valid.sum()))))
+    return fails
+
+
+def train_steps_bf16(cfg, arrays, seed: int, n_prepare: int = 5, n_full: int = 3):
+    """The shipped bf16 train steps at full width: ``n_prepare`` prepare
+    steps, then ``n_full`` full steps, from the JAX package's init. The first
+    step of each phase is its warm-up; the others are timed per step and per
+    phase. Counts are reset just before the first step and read after the
+    last; every step's own launches are kept, and each step must launch
+    every kernel of its phase."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import flagship_training
+    from panopticsegforlargescalepointcloud_tpu_torch.train import make_train_step
+
+    state, schedule, tc = flagship_training(cfg, seed)
+    fails, res = [], {}
+    reset_counts()
+    for phase, n, clustering in (("prepare", n_prepare, False), ("full", n_full, True)):
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, timers, per_step, metrics = [], [], [], []
+        for i in range(n):
+            timer = PhaseTimer()
+            step = make_train_step(cfg, state.model, state.optimizer, schedule, clustering,
+                                   tc.grad_clip_value, timer=timer if i > 0 else None)
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(arrays, state.bn_momentum)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            per_step.append({k: v - before[k] for k, v in read_counts().items()})
+            if i == 0:
+                warm_ms = dt
+            else:
+                step_ms.append(dt)
+                timers.append(timer.ms)
+            metrics.append({k: float(v) for k, v in m.items()})
+        for j, m in enumerate(metrics):
+            bad = [k for k, v in m.items() if not math.isfinite(v)]
+            if bad:
+                fails.append(f"bf16 {phase} step {j}: non-finite {bad}")
+        res[phase] = dict(
+            ms_per_step_median=statistics.median(step_ms) if step_ms else None,
+            ms_per_step=step_ms, warmup_ms=warm_ms, phases_ms=timers,
+            launches_per_step=per_step,
+            losses=[m["loss"] for m in metrics],
+            last_metrics=metrics[-1],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        )
+        need = ["A", "A_dx", "D"] + (["B", "C"] if clustering else [])
+        fails += [f"kernel {k} not launched in bf16 {phase} step {j}"
+                  for j, counts in enumerate(per_step) for k in need if counts[k] <= 0]
+    launches = read_counts()
+    log("train steps bf16", json.dumps(res))
+    return launches, res, fails
 
 
 def main() -> int:
@@ -435,28 +687,48 @@ def main() -> int:
 
     a_rep, a_err, f = phase_conv(cfg, hier, gen_seed=1)
     fails += f
+    d_rep, d_err, f = phase_dw(cfg, hier, gen_seed=4)
+    fails += f
+    fails += phase_backward(cfg, hier, gen_seed=6)
     b_rec, f = phase_pull(cfg, db, t)
     fails += f
     c_rec, f = phase_meanshift(cfg.num_samples, cfg.ms_max_seeds, cfg.ms_point_cap,
                                cfg.embed_dim, cfg.bandwidth, seed=2)
     fails += f
-    for k in kernels().values():
-        k.launches = 0  # kernel-phase launches do not count for the main path
+    reset_counts()  # kernel-phase launches do not count for the main paths
 
-    fails += main_path_f32(dataclasses.replace(cfg, compute_dtype="float32"), arrays, seed=5)
-    launches, f = main_path_bf16(cfg, arrays, seed=5, repeats=3,
-                                 hier_overflow=hier.overflow.tolist())
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    fails += main_path_f32(cfg32, arrays, seed=5)
+    eval_launches, f = main_path_bf16(cfg, arrays, seed=5, repeats=3,
+                                      hier_overflow=hier.overflow.tolist())
     fails += f
+    fails += train_step_f32(cfg32, arrays, seed=5)
+    train_launches, train_res, f = train_steps_bf16(cfg, arrays, seed=5)
+    fails += f
+    valid_rows = int(db.grid.mask.sum())
+    log("train step summary", json.dumps({
+        phase: dict(ms_per_step=r["ms_per_step_median"],
+                    rows_per_s=valid_rows / (r["ms_per_step_median"] * 1e-3),
+                    valid_rows=valid_rows, hier_overflow=hier.overflow.tolist(),
+                    cluster_overflow=r["last_metrics"].get("cluster_overflow"),
+                    peak_mem_gib=r["peak_mem_gib"], launches_per_step=r["launches_per_step"])
+        for phase, r in train_res.items()}))
 
     ks = kernels()
     entries = []
     for key, rec, err in (("A", a_rep, a_err), ("B", b_rec, b_rec["max_abs_err"]),
-                          ("C", c_rec, c_rec["max_abs_err"])):
+                          ("C", c_rec, c_rec["max_abs_err"]), ("D", d_rep, d_err)):
         k = ks[key]
+        # counts of both main paths' counted runs; A's dX launches are its own
+        # backward role of the same kernel
+        by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key]}
+        if key == "A":
+            by_path["train_steps_dx"] = train_launches["A_dx"]
         entries.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=launches[key], max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
-            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
+            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         ))
     if fails:
         for msg in fails:

@@ -35,6 +35,7 @@ _COMMON = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 # (the dense pull relies on IEEE inf).
 _SOURCES = {
     "sparse_conv.cu": [],
+    "sparse_conv_dw.cu": [],
     "dense_pull.cu": ["-fmad=false"],
     "meanshift.cu": ["-fmad=false"],
 }

@@ -1,4 +1,5 @@
 from .loader import ConfigError, load_config
-from .schema import panoptic_config_from_yaml
+from .schema import TrainingConfig, panoptic_config_from_yaml, training_config_from_yaml
 
-__all__ = ["ConfigError", "load_config", "panoptic_config_from_yaml"]
+__all__ = ["ConfigError", "TrainingConfig", "load_config", "panoptic_config_from_yaml",
+           "training_config_from_yaml"]

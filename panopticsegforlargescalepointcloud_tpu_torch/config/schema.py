@@ -1,13 +1,16 @@
-"""Composed YAML tree -> :class:`PanopticConfig` (model fields only).
+"""Composed YAML tree -> :class:`PanopticConfig` and :class:`TrainingConfig`.
 
-Counterpart of the JAX package's ``config/schema.py:panoptic_config_from_yaml``.
-Training fields (optimizer, schedules, BN momentum) belong to the training
-slice of the port and are not read here.
+Counterpart of the JAX package's ``config/schema.py``
+(``panoptic_config_from_yaml``, ``training_config_from_yaml``). Of the
+training fields, the ones the train step uses are ported (learning rate,
+optimizer, scheduler, weight decay, gradient clip) and the BN momentum
+schedule's, which the trainer reads.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 from ..models.pointgroup3heads import PanopticConfig
 
@@ -24,6 +27,53 @@ def dataset_classes(data_cfg: Dict[str, Any]) -> Tuple[int, Tuple[int, ...]]:
     return _DATASETS["npm3d" if "npm3d" in name else "treeins"]
 
 
+@dataclasses.dataclass
+class TrainingConfig:
+    batch_size: int = 4
+    samples_per_epoch: int = 3000
+    lr: float = 1e-3
+    scheduler: str = "ExponentialLR"
+    scheduler_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    optimizer: str = "Adam"
+    weight_decay: float = 0.0
+    grad_clip: Optional[float] = None  # <= 0 or None: no clipping
+    bn_momentum: float = 0.1
+    bn_decay: float = 0.5  # step-decay policy of the BN momentum
+    bn_decay_every: int = 20
+    bn_clip: float = 0.01
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return max(self.samples_per_epoch // max(self.batch_size, 1), 1)
+
+    @property
+    def grad_clip_value(self) -> Optional[float]:
+        gc = self.grad_clip
+        return None if gc is None or gc <= 0 else float(gc)
+
+
+def training_config_from_yaml(cfg: Dict[str, Any]) -> TrainingConfig:
+    t = cfg.get("training", {})
+    lr_s = cfg.get("lr_scheduler", {})
+    optim = t.get("optim", {})
+    bn = t.get("bn_scheduler", {}).get("params", {})
+    gc = t.get("grad_clip", None)
+    return TrainingConfig(
+        batch_size=int(t.get("batch_size", 4)),
+        samples_per_epoch=int(t.get("samples_per_epoch", 3000)),
+        lr=float(optim.get("base_lr", t.get("lr", 1e-3))),
+        scheduler=str(lr_s.get("class", "ExponentialLR")),
+        scheduler_params=dict(lr_s.get("params", {}) or {}),
+        optimizer=str(optim.get("class", "Adam")),
+        weight_decay=float(optim.get("weight_decay", 0.0)),
+        grad_clip=None if gc is None else float(gc),
+        bn_momentum=float(bn.get("bn_momentum", 0.1)),
+        bn_decay=float(bn.get("bn_decay", 0.5)),
+        bn_decay_every=int(bn.get("decay_step", 20)),
+        bn_clip=float(bn.get("bn_clip", 0.01)),
+    )
+
+
 def panoptic_config_from_yaml(
     cfg: Dict[str, Any],
     model_name: str | None = None,
@@ -36,6 +86,7 @@ def panoptic_config_from_yaml(
     if model_name not in models:
         raise KeyError(f"model_name {model_name!r} not in models ({list(models)})")
     m = models[model_name]
+    lw = m.get("loss_weights", {})
     num_classes, stuff = dataset_classes(cfg.get("data", {}))
     grid = float(cfg.get("data", {}).get("grid_size", 0.2))
     klass = str(m.get("class", "PointGroup3Heads"))
@@ -52,12 +103,20 @@ def panoptic_config_from_yaml(
         cluster_type=int(m.get("cluster_type", 5)),
         bandwidth=float(m.get("bandwidth", 0.6)),
         cluster_radius=float(m.get("cluster_radius_search", 1.5 * grid)),
+        prepare_epoch=int(m.get("prepare_epoch", 30)),
         scorer_type=str(m.get("scorer_type", "unet") or ""),
         use_score_net=bool(m.get("use_score_net", True)),
         mask_supervise=bool(m.get("mask_supervise", False)),
         rg_point_cap=float(m.get("rg_point_cap", 0)),
         scorer_capacity_mult=float(m.get("scorer_capacity_mult", 1.0)),
         ms_point_cap=int(m.get("ms_point_cap", 16384)),
+        min_iou_threshold=float(m.get("min_iou_threshold", 0.25)),
+        max_iou_threshold=float(m.get("max_iou_threshold", 0.75)),
+        w_semantic=float(lw.get("semantic", 1.0)),
+        w_offset_norm=float(lw.get("offset_norm_loss", 0.1)),
+        w_offset_dir=float(lw.get("offset_dir_loss", 0.1)),
+        w_score=float(lw.get("score_loss", 1.0)),
+        w_embed=float(lw.get("embedding_loss", 1.0)),
         num_samples=int(cfg.get("training", {}).get("batch_size", 4)),
         backbone=(str(m.get("backbone", backbone)) if backbone == "paper" else backbone),
     )

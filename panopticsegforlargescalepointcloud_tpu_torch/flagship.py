@@ -1,35 +1,69 @@
-"""The flagship configuration, its synthetic inputs and seeded random
-weights, shared by ``chip_smoke.py`` and :mod:`.trace_eval`.
+"""The flagship configuration, its training configuration, its synthetic
+inputs and seeded weights, shared by ``chip_smoke.py``, :mod:`.trace_eval`
+and :mod:`.trace_train`.
 
 Setting IV (``conf/models/panoptic/area4_ablation_3heads_5.yaml``) on the
-NPM3D 0.12 m data yaml; inputs as the JAX package's ``bench.py:build_inputs``
-(4 synthetic 16 m cylinders in 131,072 rows).
+NPM3D 0.12 m data yaml, trained as ``conf/training/npm3d.yaml`` with the
+default exponential lr schedule; inputs as the JAX package's
+``bench.py:build_inputs`` (4 synthetic 16 m cylinders in 131,072 rows).
 """
 
 from __future__ import annotations
 
 import math
 import os
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from .config import load_config, panoptic_config_from_yaml
+from .config import (
+    TrainingConfig,
+    load_config,
+    panoptic_config_from_yaml,
+    training_config_from_yaml,
+)
 from .data import collate_tiles, synthetic_tile
 from .models import PanopticConfig, PointGroup3HeadsNet
+from .train.optim import Schedule, make_lr_schedule
+from .train.step import TrainState, init_state
 
 CONF_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "conf")
 
 
-def flagship_config(num_samples: int = 4, compute_dtype: str = "bfloat16",
-                    **overrides) -> PanopticConfig:
-    ycfg = load_config(CONF_DIR, [
+def _flagship_yaml():
+    return load_config(CONF_DIR, [
         "data=panoptic/npm3d-sparseconv_grid_012_R_16_cylinder_area1",
         "models=panoptic/area4_ablation_3heads_5",
         "model_name=PointGroup-PAPER",
+        "training=npm3d",
+        "lr_scheduler=exponential",
     ])
-    return panoptic_config_from_yaml(ycfg, num_samples=num_samples,
+
+
+def flagship_config(num_samples: int = 4, compute_dtype: str = "bfloat16",
+                    **overrides) -> PanopticConfig:
+    return panoptic_config_from_yaml(_flagship_yaml(), num_samples=num_samples,
                                      compute_dtype=compute_dtype, **overrides)
+
+
+def flagship_training_config() -> TrainingConfig:
+    """Adam at base lr 0.001, exponential decay (gamma 0.9885 per epoch of
+    3,000 samples), BN momentum 0.1."""
+    return training_config_from_yaml(_flagship_yaml())
+
+
+def flagship_training(cfg: PanopticConfig, seed: int, device=None
+                      ) -> Tuple[TrainState, Schedule, TrainingConfig]:
+    """The start of training: the model initialized as the JAX package
+    initializes it, from a ``torch.Generator`` seeded with ``seed``, its
+    optimizer and lr schedule, and the training configuration (whose
+    ``grad_clip_value`` the train step takes)."""
+    tc = flagship_training_config()
+    state = init_state(cfg, torch.Generator().manual_seed(seed), tc.optimizer, tc.weight_decay,
+                       tc.bn_momentum, device=device)
+    schedule = make_lr_schedule(tc.scheduler, tc.scheduler_params, tc.lr, tc.steps_per_epoch)
+    return state, schedule, tc
 
 
 def build_inputs(num_tiles: int = 4, capacity: int = 131072, seed: int = 0,

@@ -4,10 +4,11 @@ from .pointgroup3heads import (
     PointGroup3HeadsNet,
     Proposals,
     build_proposals,
+    panoptic_losses,
     scorer_inputs,
 )
 
 __all__ = [
     "PanopticConfig", "PanopticOutput", "PointGroup3HeadsNet", "Proposals",
-    "build_proposals", "scorer_inputs",
+    "build_proposals", "panoptic_losses", "scorer_inputs",
 ]

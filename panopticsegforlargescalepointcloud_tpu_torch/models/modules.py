@@ -1,7 +1,11 @@
-"""Building blocks of the sparse 3D UNet (eval forward).
+"""Building blocks of the sparse 3D UNet.
 
 Counterparts of the JAX package's ``models/modules.py``. Every module takes
-padded [N, C] features plus a valid mask and prebuilt kernel maps. Attribute
+padded [N, C] features plus a valid mask and prebuilt kernel maps, and the
+BN momentum of the step (used in training mode only). Every conv also gets
+its transpose map, which carries its backward (:func:`..ops.conv.sparse_conv`):
+a submanifold map is its own transpose, and a strided conv's is the partner
+map of its down/up pair. Attribute
 names mirror the flax module names (``SparseConv_0``, ``ConvBNReLU_1``,
 ``ResBlock_0``, ``Dense_0``, ``MaskedBatchNorm_0``, ...) so that
 :func:`..weights.params_from_flax` is a rename.
@@ -35,9 +39,9 @@ class SparseConv(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(27, cin, cout))
         self.compute_dtype = _DTYPES[compute_dtype]
 
-    def forward(self, x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, nbr: torch.Tensor, nbr_t=None) -> torch.Tensor:
         cdt = self.compute_dtype
-        return sparse_conv(x.to(cdt).contiguous(), nbr, self.kernel.to(cdt).contiguous())
+        return sparse_conv(x.to(cdt).contiguous(), nbr, self.kernel.to(cdt).contiguous(), nbr_t)
 
 
 class ConvBNReLU(nn.Module):
@@ -46,8 +50,8 @@ class ConvBNReLU(nn.Module):
         self.SparseConv_0 = SparseConv(cin, cout, compute_dtype)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cout)
 
-    def forward(self, x, nbr, mask):
-        return F.relu(self.MaskedBatchNorm_0(self.SparseConv_0(x, nbr), mask))
+    def forward(self, x, nbr, mask, momentum=0.1, nbr_t=None):
+        return F.relu(self.MaskedBatchNorm_0(self.SparseConv_0(x, nbr, nbr_t), mask, momentum))
 
 
 class ResBlock(nn.Module):
@@ -62,11 +66,11 @@ class ResBlock(nn.Module):
             self.Dense_0 = nn.Linear(cin, cout, bias=False)
             self.MaskedBatchNorm_0 = MaskedBatchNorm(cout)
 
-    def forward(self, x, same_map, mask):
-        h = self.ConvBNReLU_0(x, same_map, mask)
-        h = self.ConvBNReLU_1(h, same_map, mask)
+    def forward(self, x, same_map, mask, momentum=0.1):
+        h = self.ConvBNReLU_0(x, same_map, mask, momentum, same_map)
+        h = self.ConvBNReLU_1(h, same_map, mask, momentum, same_map)
         if hasattr(self, "Dense_0"):
-            sc = self.MaskedBatchNorm_0(self.Dense_0(x), mask)
+            sc = self.MaskedBatchNorm_0(self.Dense_0(x), mask, momentum)
         else:
             sc = x
         return h + sc
@@ -88,10 +92,11 @@ class ResNetDown(nn.Module):
                     ResBlock(first_out if b == 0 else cout, cout, compute_dtype))
         self.num_blocks = num_blocks
 
-    def forward(self, x, conv_map, same_map_out, mask_out):
-        h = self.ConvBNReLU_0(x, conv_map, mask_out)
+    def forward(self, x, conv_map, same_map_out, mask_out, momentum=0.1, conv_map_t=None):
+        """``conv_map_t``: the transpose of ``conv_map``."""
+        h = self.ConvBNReLU_0(x, conv_map, mask_out, momentum, conv_map_t)
         for b in range(self.num_blocks):
-            h = getattr(self, f"ResBlock_{b}")(h, same_map_out, mask_out)
+            h = getattr(self, f"ResBlock_{b}")(h, same_map_out, mask_out, momentum)
         return h
 
 
@@ -104,10 +109,11 @@ class ResNetUp(nn.Module):
         super().__init__()
         self.up = ResNetDown(conv_nn, stride, num_blocks, compute_dtype)
 
-    def forward(self, x, skip, conv_map, same_map_out, mask_out):
+    def forward(self, x, skip, conv_map, same_map_out, mask_out, momentum=0.1,
+                conv_map_t=None):
         if skip is not None:
             x = torch.cat([x, skip], dim=-1)
-        return self.up(x, conv_map, same_map_out, mask_out)
+        return self.up(x, conv_map, same_map_out, mask_out, momentum, conv_map_t)
 
 
 class PointMLP(nn.Module):
@@ -121,9 +127,9 @@ class PointMLP(nn.Module):
             setattr(self, f"MaskedBatchNorm_{i}", MaskedBatchNorm(c))
             cin = c
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, momentum=0.1):
         for i in range(len(self.channels)):
             x = getattr(self, f"Dense_{i}")(x)
-            x = getattr(self, f"MaskedBatchNorm_{i}")(x, mask)
+            x = getattr(self, f"MaskedBatchNorm_{i}")(x, mask, momentum)
             x = F.leaky_relu(x, 0.2)
         return x * mask.to(x.dtype)[:, None]

@@ -1,10 +1,10 @@
 """PointGroup3Heads: backbone + semantic/offset/embed heads + UNet ScoreNet.
 
-Counterpart of the JAX package's ``models/pointgroup3heads.py`` for the eval
-forward of the 3heads family: ``backbone_heads``, ``score`` (UNet scorer),
-``build_proposals`` (region growing on the configured sources + mean shift on
-embeddings) and ``scorer_inputs`` (the ScoreNet grid, whose batch field is
-the proposal id and whose coords are centered per proposal).
+Counterpart of the JAX package's ``models/pointgroup3heads.py`` for the 3heads
+family: ``backbone_heads``, ``score`` (UNet scorer), ``build_proposals``
+(region growing on the configured sources + mean shift on embeddings),
+``scorer_inputs`` (the ScoreNet grid, whose batch field is the proposal id
+and whose coords are centered per proposal) and ``panoptic_losses``.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,6 +23,13 @@ from ..ops.hashing import BitLayout
 from ..ops.hierarchy import Hierarchy, build_hierarchy
 from ..ops.scatter import scatter_drop, segment_max, segment_min
 from ..ops.sparse import make_grid
+from .losses import (
+    discriminative_loss,
+    instance_iou,
+    instance_iou_loss,
+    offset_loss,
+    semantic_nll_loss,
+)
 from .modules import PointMLP
 from .plans import paper_backbone_plan, scorer_unet_plan, tiny_backbone_plan
 from .unet import SparseUNet
@@ -44,10 +51,20 @@ class PanopticConfig:
     cluster_type: int = 5
     bandwidth: float = 0.6
     cluster_radius: float = 0.3
+    prepare_epoch: int = 30
     scorer_type: str = "unet"
     use_score_net: bool = True
     mask_supervise: bool = False
+    min_iou_threshold: float = 0.25
+    max_iou_threshold: float = 0.75
+    # loss weights (PointGroup-PAPER yaml loss_weights)
+    w_semantic: float = 1.0
+    w_offset_norm: float = 0.1
+    w_offset_dir: float = 0.1
+    w_score: float = 1.0
+    w_embed: float = 1.0
     num_samples: int = 4
+    max_instances: int = 64  # K, instance ids per sample
     max_props_rg: int = 128
     ms_max_seeds: int = 128
     ms_max_clusters: int = 32
@@ -133,14 +150,19 @@ class Proposals(NamedTuple):
 
 
 class PanopticOutput(NamedTuple):
+    """The clustering fields are None for a forward without clustering
+    (the prepare train step)."""
+
     semantic_logits: torch.Tensor  # [N, C] log-probs
     offset_logits: torch.Tensor  # [N, 3]
     embed_logits: torch.Tensor  # [N, E]
     backbone_feats: torch.Tensor  # [N, F]
-    proposals: Proposals
-    cluster_scores: torch.Tensor  # [P]
-    scorer_overflow: torch.Tensor  # [] int32 members dropped from the ScoreNet grid
-    cluster_overflow: torch.Tensor  # [] int32 thing rows past the clustering budgets
+    proposals: Optional[Proposals] = None
+    cluster_scores: Optional[torch.Tensor] = None  # [P]
+    # [] int32 members dropped from the ScoreNet grid
+    scorer_overflow: Optional[torch.Tensor] = None
+    # [] int32 thing rows past the clustering budgets
+    cluster_overflow: Optional[torch.Tensor] = None
 
 
 class PointGroup3HeadsNet(nn.Module):
@@ -162,18 +184,20 @@ class PointGroup3HeadsNet(nn.Module):
         self.scorer = SparseUNet(**scorer_unet_plan(f), compute_dtype=cfg.compute_dtype)
         self.scorer_head = nn.Linear(f, 1)
 
-    def backbone_heads(self, feats: torch.Tensor, hier: Hierarchy):
+    def backbone_heads(self, feats: torch.Tensor, hier: Hierarchy, momentum=0.1):
+        """``momentum``: BN momentum of the step (training mode only)."""
         mask = hier.grids[0].mask
-        x = self.backbone(feats, hier)
-        sem = torch.log_softmax(self.semantic_out(self.semantic_mlp(x, mask)), dim=-1)
-        off = self.offset_out(self.offset_mlp(x, mask))
-        emb = self.embed_out(self.embed_mlp(x, mask))
+        x = self.backbone(feats, hier, momentum)
+        sem = torch.log_softmax(self.semantic_out(self.semantic_mlp(x, mask, momentum)), dim=-1)
+        off = self.offset_out(self.offset_mlp(x, mask, momentum))
+        emb = self.embed_out(self.embed_mlp(x, mask, momentum))
         m = mask[:, None]
         return x, sem, torch.where(m, off, 0.0), torch.where(m, emb, 0.0)
 
-    def score(self, scorer_feats, scorer_hier: Hierarchy, prop_of_row, num_props: int):
+    def score(self, scorer_feats, scorer_hier: Hierarchy, prop_of_row, num_props: int,
+              momentum=0.1):
         """ScoreNet -> per-proposal max pool -> sigmoid head: scores [P]."""
-        out = self.scorer(scorer_feats, scorer_hier)
+        out = self.scorer(scorer_feats, scorer_hier, momentum)
         seg = torch.where(prop_of_row >= 0, prop_of_row, torch.full_like(prop_of_row, -1))
         cluster_feats = segment_max(out, seg, num_props, fill=0.0)
         return torch.sigmoid(self.scorer_head(cluster_feats))[:, 0]
@@ -183,11 +207,14 @@ def _phase(timer, name):
     return timer(name) if timer is not None else contextlib.nullcontext()
 
 
+@torch.no_grad()
 def build_proposals(cfg: PanopticConfig, pos, offsets, embeds, sem_logp, batch, valid,
                     timer=None):
     """Run the configured cluster sources and assemble the membership table
     (``num_sources`` blocks of N rows). Returns (proposals, cluster_overflow).
-    ``timer(name)``, when given, wraps the region growing and the mean shift."""
+    ``timer(name)``, when given, wraps the region growing and the mean shift.
+    Clustering emits integer assignments only, so it runs without autograd
+    (the JAX package's ``stop_gradient`` around it)."""
     n = pos.shape[0]
     dev = pos.device
     pred = torch.argmax(sem_logp, dim=-1).to(torch.int32)
@@ -266,7 +293,8 @@ def scorer_inputs(cfg: PanopticConfig, props: Proposals, coords, backbone_feats)
     """The ScoreNet minibatch: one sparse grid with the proposal id in the
     batch field and coords centered on each proposal's bbox midpoint.
     Members outside the bit budget or past the grid capacity are dropped and
-    counted. Returns (grid, hier, feats, row_of_member, overflow)."""
+    counted. Returns (grid, hier, feats, row_of_member, overflow). The
+    ScoreNet features keep their gradient to ``backbone_feats``."""
     bits = cfg.scorer_layout
     m = int(props.budget * cfg.scorer_capacity_mult)
     m = -(-m // 256) * 256
@@ -288,8 +316,42 @@ def scorer_inputs(cfg: PanopticConfig, props: Proposals, coords, backbone_feats)
     overflow = (ok & ~in_budget).sum().to(torch.int32)
     grid, inverse = make_grid(seg, rel, ok, bits=bits, capacity=m)
     overflow = overflow + (ok & in_budget & (inverse < 0)).sum().to(torch.int32)
-    feats = backbone_feats[pt]
+    feats = backbone_feats.index_select(0, pt)  # backward: an index_add
     sf = scatter_drop(m, 0.0, torch.where(ok & (inverse >= 0), inverse,
                                           torch.full_like(inverse, m)), feats)
     hier = build_hierarchy(grid, num_down=2, bits=bits, device=dev)
     return grid, hier, sf, inverse, overflow
+
+
+def panoptic_losses(cfg: PanopticConfig, out: PanopticOutput, labels_y, vote_label,
+                    instance_labels, instance_mask, batch, valid,
+                    class_weights: torch.Tensor | None = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The total loss and its terms (the JAX package's ``panoptic_losses``
+    without the mask branch): semantic NLL, offset norm and direction,
+    discriminative embedding, and with proposals and scores the ScoreNet's
+    IoU loss; the overflow counters ride along as f32 metrics."""
+    losses = {"semantic_loss": semantic_nll_loss(out.semantic_logits, labels_y, valid,
+                                                 class_weights)}
+    total = cfg.w_semantic * losses["semantic_loss"]
+    off = offset_loss(out.offset_logits, vote_label, instance_mask & valid)
+    losses.update(off)
+    total = total + cfg.w_offset_norm * off["offset_norm_loss"]
+    total = total + cfg.w_offset_dir * off["offset_dir_loss"]
+    disc = discriminative_loss(out.embed_logits, instance_labels, batch, instance_mask & valid,
+                               cfg.num_samples, cfg.max_instances)
+    losses.update(disc)
+    total = total + cfg.w_embed * disc["ins_loss"]
+    if out.proposals is not None and out.cluster_scores is not None:
+        ious = instance_iou(out.proposals, instance_labels, batch, cfg.num_samples,
+                            cfg.max_instances)
+        losses["score_loss"] = instance_iou_loss(ious, out.cluster_scores,
+                                                 out.proposals.prop_valid,
+                                                 cfg.min_iou_threshold, cfg.max_iou_threshold)
+        total = total + cfg.w_score * losses["score_loss"]
+    if out.scorer_overflow is not None:
+        losses["scorer_overflow"] = out.scorer_overflow.float()
+    if out.cluster_overflow is not None:
+        losses["cluster_overflow"] = out.cluster_overflow.float()
+    losses["loss"] = total
+    return total, losses

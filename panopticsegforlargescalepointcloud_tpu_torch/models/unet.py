@@ -4,6 +4,12 @@ package's ``models/unet.py:SparseUNet``).
 Skip wiring: every down output except the last is pushed; ups pop in
 reverse, the first up gets no skip, and ResNetUp concatenates the skip at
 the coarse level before the transpose conv.
+
+Transpose maps, which carry each conv's backward: a down conv at level l
+pairs with ``hier.up_maps[l]``, an up conv from level l with
+``hier.down_maps[l - 1]``, and a submanifold map is its own transpose. The
+JAX package's ``remat`` is not carried over: it worked around the TPU's
+tile-padded activations, and a GPU step keeps its activations.
 """
 
 from __future__ import annotations
@@ -36,17 +42,20 @@ class SparseUNet(nn.Module):
             setattr(self, f"up_{i}", ResNetUp(ch, s, num_blocks, compute_dtype))
         self.output_nc = up_channels[-1][1]
 
-    def forward(self, x: torch.Tensor, hier: Hierarchy) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hier: Hierarchy, momentum=0.1) -> torch.Tensor:
         level = 0
         skips = []
         n_down = len(self.down_strides)
         for i, s in enumerate(self.down_strides):
             if s == 1:
-                conv_map, out_level = hier.same_maps[level], level
+                conv_map = conv_map_t = hier.same_maps[level]
+                out_level = level
             else:
-                conv_map, out_level = hier.down_maps[level], level + 1
+                conv_map, conv_map_t = hier.down_maps[level], hier.up_maps[level]
+                out_level = level + 1
             x = getattr(self, f"down_{i}")(
-                x, conv_map, hier.same_maps[out_level], hier.grids[out_level].mask
+                x, conv_map, hier.same_maps[out_level], hier.grids[out_level].mask,
+                momentum, conv_map_t,
             )
             level = out_level
             if i < n_down - 1:
@@ -58,11 +67,14 @@ class SparseUNet(nn.Module):
             if skip_level != level:
                 raise ValueError(f"up module {i}: skip level {skip_level} != {level}")
             if s == 1:
-                conv_map, out_level = hier.same_maps[level], level
+                conv_map = conv_map_t = hier.same_maps[level]
+                out_level = level
             else:
-                conv_map, out_level = hier.up_maps[level - 1], level - 1
+                conv_map, conv_map_t = hier.up_maps[level - 1], hier.down_maps[level - 1]
+                out_level = level - 1
             x = getattr(self, f"up_{i}")(
-                x, skip, conv_map, hier.same_maps[out_level], hier.grids[out_level].mask
+                x, skip, conv_map, hier.same_maps[out_level], hier.grids[out_level].mask,
+                momentum, conv_map_t,
             )
             level = out_level
         if level != 0:

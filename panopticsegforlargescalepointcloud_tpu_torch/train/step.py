@@ -1,31 +1,44 @@
-"""Eval forward of a batch of tiles (counterpart of the JAX package's
-``train/step.py``: ``canonicalize``, the eval half of ``panoptic_forward``
-and ``make_eval_forward``).
+"""Eval forward and train step of a batch of tiles (counterpart of the JAX
+package's ``train/step.py``: ``canonicalize``, ``panoptic_forward``,
+``TrainState``, ``init_state``, ``make_train_step`` and
+``make_eval_forward``).
 
-The port runs eagerly; ``make_eval_forward`` returns a plain function of the
-batch arrays. The model carries its own weights (load them with
-:func:`..weights.params_from_flax` and ``load_state_dict``).
+The port runs eagerly; ``make_eval_forward`` and ``make_train_step`` return
+plain functions of the batch arrays. The model carries its own weights (load
+them with :func:`..weights.params_from_flax` and ``load_state_dict``) and,
+as module state, the BN running statistics that a train step updates.
+
+The train step comes in the JAX package's two phases: the *prepare* step
+(backbone + heads + point losses) and the *full* step (plus clustering, the
+ScoreNet and its score loss).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import dataclasses
+import math
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..device import resolve_device
+from ..models.modules import ResBlock, SparseConv
+from ..models.norm import MaskedBatchNorm
 from ..models.pointgroup3heads import (
     PanopticConfig,
     PanopticOutput,
     PointGroup3HeadsNet,
     _phase,
     build_proposals,
+    panoptic_losses,
     scorer_inputs,
 )
 from ..ops.hierarchy import Hierarchy, build_hierarchy
 from ..ops.scatter import segment_max
 from ..ops.sparse import SparseGrid, make_grid
+from .optim import Schedule, make_optimizer, optimizer_step
 
 
 class DeviceBatch(NamedTuple):
@@ -85,18 +98,27 @@ def canonicalize(coords, batch, mask, feats, pos, y, instance_labels, vote_label
     )
 
 
-@torch.no_grad()
 def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: DeviceBatch,
-                     hier: Hierarchy, timer: Optional[Callable] = None) -> PanopticOutput:
-    """Backbone + heads, then proposals and ScoreNet scores. ``timer(name)``,
-    when given, returns a context manager wrapped around each phase."""
+                     hier: Hierarchy, with_clustering: bool = True, momentum=0.1,
+                     timer: Optional[Callable] = None) -> PanopticOutput:
+    """Backbone + heads, then (``with_clustering``) proposals and ScoreNet
+    scores. The model's mode decides the BN statistics (``model.train()``:
+    batch statistics, running statistics updated with ``momentum``) and the
+    caller's grad mode whether a graph is built. Clustering runs on detached
+    heads; the ScoreNet's input keeps its gradient to the backbone.
+    ``timer(name)``, when given, returns a context manager wrapped around
+    each phase."""
     with _phase(timer, "backbone_heads"):
-        x, sem, off, emb = model.backbone_heads(db.feats, hier)
+        x, sem, off, emb = model.backbone_heads(db.feats, hier, momentum)
+    if not with_clustering:
+        return PanopticOutput(semantic_logits=sem, offset_logits=off, embed_logits=emb,
+                              backbone_feats=x)
     props, cluster_overflow = build_proposals(
-        cfg, db.pos, off, emb, sem, db.grid.batch, db.grid.mask, timer=timer)
+        cfg, db.pos, off.detach(), emb.detach(), sem.detach(), db.grid.batch, db.grid.mask,
+        timer=timer)
     with _phase(timer, "scorenet"):
         sg, shier, sfeats, _, scorer_overflow = scorer_inputs(cfg, props, db.grid.coords, x)
-        scores = model.score(sfeats, shier, sg.batch, cfg.total_props)
+        scores = model.score(sfeats, shier, sg.batch, cfg.total_props, momentum)
     return PanopticOutput(
         semantic_logits=sem,
         offset_logits=off,
@@ -113,14 +135,131 @@ def make_eval_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, device=No
                       timer: Optional[Callable] = None):
     """Inference: ``fwd(arrays) -> (DeviceBatch, PanopticOutput)``,
     with ``arrays`` in the JAX package's ``batch_arrays`` order. Runs on
-    ``cuda`` unless ``device="cpu"``; moves the model there in eval mode."""
+    ``cuda`` unless ``device="cpu"``; moves the model there and runs it in
+    eval mode."""
     dev = resolve_device(device)
-    model.to(dev).eval()
+    model.to(dev)
 
+    @torch.no_grad()
     def fwd(arrays):
+        model.eval()
         with _phase(timer, "hierarchy"):
             db = canonicalize(*arrays, device=dev)
             hier = build_hierarchy(db.grid, cfg.num_down, device=dev)
-        return db, panoptic_forward(cfg, model, db, hier, timer)
+        return db, panoptic_forward(cfg, model, db, hier, timer=timer)
 
     return fwd
+
+
+# --------------------------------------------------------------------- training
+
+# flax's truncated normal draws in [-2, 2] standard deviations of an
+# untruncated normal and rescales by this factor to keep the variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def _variance_scaling_(w: torch.Tensor, scale: float, fan: int, gen: torch.Generator):
+    std = math.sqrt(scale / fan) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX package's initializers, as distributions: sparse-conv kernels
+    and the ResBlock 1x1 shortcuts variance-scaling 2.0 over fan-out,
+    truncated normal (``modules.py:conv_init``); the other dense layers
+    flax's lecun normal (1.0 over fan-in, truncated) with zero bias; BN scale
+    1, bias 0, statistics 0 and 1."""
+    shortcuts = {id(m.Dense_0) for m in model.modules()
+                 if isinstance(m, ResBlock) and hasattr(m, "Dense_0")}
+    for m in model.modules():
+        if isinstance(m, SparseConv):
+            kvol, _, cout = m.kernel.shape
+            _variance_scaling_(m.kernel, 2.0, kvol * cout, generator)
+        elif isinstance(m, nn.Linear):
+            if id(m) in shortcuts:
+                _variance_scaling_(m.weight, 2.0, m.out_features, generator)
+            else:
+                _variance_scaling_(m.weight, 1.0, m.in_features, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, MaskedBatchNorm):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+            m.mean.zero_()
+            m.var.fill_(1.0)
+    return model
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (weights and BN running statistics), its optimizer and the
+    torch-convention BN momentum the next step uses. The step count is the
+    optimizer's schedule count (:func:`.optim.optimizer_step`)."""
+
+    model: PointGroup3HeadsNet
+    optimizer: torch.optim.Optimizer
+    bn_momentum: float = 0.1
+
+    @property
+    def step(self) -> int:
+        return int(self.optimizer.param_groups[0].get("count", 0))
+
+
+def init_state(cfg: PanopticConfig, generator: torch.Generator, optimizer: str = "Adam",
+               weight_decay: float = 0.0, bn_momentum: float = 0.1, device=None) -> TrainState:
+    """A model initialized from ``generator``, on ``device`` (``cuda``
+    unless ``device="cpu"``), and its optimizer."""
+    dev = resolve_device(device)
+    model = init_params(PointGroup3HeadsNet(cfg), generator).to(dev)
+    return TrainState(model, make_optimizer(optimizer, model.parameters(), weight_decay),
+                      bn_momentum)
+
+
+def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
+                    optimizer: torch.optim.Optimizer, schedule: Schedule,
+                    with_clustering: bool, grad_clip_value: float | None = None,
+                    class_weights=None, device=None, timer: Optional[Callable] = None):
+    """``step(arrays, bn_momentum) -> metrics``: one forward in training
+    mode, the losses, the backward and one optimizer update at
+    ``schedule(count)``. The weights, the optimizer state and the BN running
+    statistics are updated in place. ``metrics`` holds every loss term,
+    ``loss`` and ``hier_overflow`` as 0-dim tensors on the device. Runs on
+    ``cuda`` unless ``device="cpu"``; moves the model there.
+    ``grad_clip_value`` clips each gradient element to [-v, v].
+    ``timer(name)``, when given, wraps each phase (hierarchy, backbone_heads,
+    region_growing, mean_shift, scorenet, losses, backward, optimizer)."""
+    dev = resolve_device(device)
+    model.to(dev)
+    cw = None if class_weights is None else torch.as_tensor(class_weights, dtype=torch.float32,
+                                                            device=dev)
+    params = list(model.parameters())
+
+    def step(arrays, bn_momentum=0.1) -> Dict[str, torch.Tensor]:
+        model.train()
+        with torch.no_grad(), _phase(timer, "hierarchy"):
+            db = canonicalize(*arrays, device=dev)
+            hier = build_hierarchy(db.grid, cfg.num_down, device=dev)
+        for p in params:
+            p.grad = None
+        out = panoptic_forward(cfg, model, db, hier, with_clustering, bn_momentum, timer)
+        with _phase(timer, "losses"):
+            total, losses = panoptic_losses(cfg, out, db.y, db.vote_label, db.instance_labels,
+                                            db.instance_mask, db.grid.batch, db.grid.mask, cw)
+        with _phase(timer, "backward"):
+            total.backward()
+        with torch.no_grad(), _phase(timer, "optimizer"):
+            for p in params:
+                # a parameter off this phase's path (the ScoreNet in the
+                # prepare step) gets a zero gradient, as under jax.grad: the
+                # optimizer updates every parameter at every step
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if grad_clip_value is not None:
+                torch.nn.utils.clip_grad_value_(params, grad_clip_value)
+            optimizer_step(optimizer, schedule)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["hier_overflow"] = hier.overflow.sum()
+        return metrics
+
+    return step

@@ -7,6 +7,7 @@ change form: a 2-D ``kernel`` (``nn.Dense``: heads, MLPs, 1x1 shortcuts) is
 stored [in, out] by flax and becomes the transposed ``weight`` of an
 ``nn.Linear``; a 3-D ``kernel`` ([27, Cin, Cout] sparse conv) stays as is.
 ``batch_stats`` ``mean``/``var`` become the MaskedBatchNorm buffers.
+:func:`flax_paths` is the inverse, for a state_dict or for gradients.
 """
 
 from __future__ import annotations
@@ -44,3 +45,23 @@ def params_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
             raise KeyError(f"unexpected flax batch stat {'/'.join(path)}")
         sd[".".join(path)] = torch.from_numpy(np.array(leaf, dtype=np.float32, copy=True))
     return sd
+
+
+def flax_paths(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_flax` for any name -> tensor map (a
+    ``state_dict``, or ``{name: p.grad}``): flax paths joined by ``/``
+    (``backbone/down_0/.../kernel``) -> f32 numpy arrays, with ``nn.Linear``
+    weights transposed back into flax ``kernel``s. BN buffers keep their
+    ``mean``/``var`` leaf names (the flax ``batch_stats`` paths)."""
+    out: Dict[str, np.ndarray] = {}
+    for name, t in tensors.items():
+        path = name.split(".")
+        arr = t.detach().float().cpu().numpy()
+        if path[-1] == "weight":
+            if arr.ndim != 2:
+                raise KeyError(f"unexpected weight {name} of shape {arr.shape}")
+            arr, path[-1] = arr.T, "kernel"
+        elif path[-1] not in ("kernel", "bias", "scale", "mean", "var"):
+            raise KeyError(f"unexpected tensor {name}")
+        out["/".join(path)] = np.ascontiguousarray(arr)
+    return out

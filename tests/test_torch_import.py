@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: it imports neither JAX, flax nor the JAX
-package; its entry points default to the GPU and raise without one; its
-kernel wrappers run their plain versions on CPU tensors without counting a
-launch."""
+"""The PyTorch port stands alone: it imports neither JAX, flax, optax nor the
+JAX package; its entry points (the eval forward's and the train step's)
+default to the GPU and raise without one; its kernel wrappers, the conv's
+backward included, run their plain versions on CPU tensors without counting
+a launch."""
 
 import ast
 import json
@@ -50,6 +51,9 @@ def test_package_import_leaves_jax_unloaded():
         "import panopticsegforlargescalepointcloud_tpu_torch.config\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.data\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.flagship\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.train.optim\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.models.losses\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.trace_train\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -58,6 +62,7 @@ def test_package_import_leaves_jax_unloaded():
     bad = [m for m in mods if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
     assert "panopticsegforlargescalepointcloud_tpu_torch.train.step" in mods
+    assert "panopticsegforlargescalepointcloud_tpu_torch.train.optim" in mods
 
 
 def _tiny_arrays():
@@ -97,17 +102,48 @@ def test_entry_points_default_to_gpu():
     assert hier.overflow.shape == (3,)
 
 
+def test_train_entry_points_default_to_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from panopticsegforlargescalepointcloud_tpu_torch.models import PanopticConfig
+    from panopticsegforlargescalepointcloud_tpu_torch.train import (
+        init_state,
+        make_lr_schedule,
+        make_train_step,
+    )
+
+    cfg = PanopticConfig(num_classes=9, stuff_classes=(0, 7, 8), backbone="tiny",
+                         in_feat=8, num_samples=1)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(cfg, gen)
+    state = init_state(cfg, gen, device="cpu")
+    assert next(state.model.parameters()).device.type == "cpu" and state.step == 0
+    schedule = make_lr_schedule("ExponentialLR", {}, 1e-3, 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, state.model, state.optimizer, schedule, False)
+    step = make_train_step(cfg, state.model, state.optimizer, schedule, False, device="cpu")
+    metrics = step(_tiny_arrays(), 0.1)
+    assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
+
+
 def test_wrappers_take_plain_version_on_cpu():
     from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow, meanshift
     from panopticsegforlargescalepointcloud_tpu_torch.ops import conv
 
     g = torch.Generator().manual_seed(0)
-    kernels = (conv.KERNEL, dense_grow.KERNEL, meanshift.KERNEL)
+    kernels = (conv.KERNEL, conv.KERNEL_DX, conv.KERNEL_DW, dense_grow.KERNEL, meanshift.KERNEL)
     before = [k.launches for k in kernels]
     f = torch.randn((10, 4), generator=g)
     idx = torch.randint(-1, 10, (6, 27), generator=g, dtype=torch.int32)
     w = torch.randn((27, 4, 3), generator=g)
     assert torch.equal(conv.sparse_conv(f, idx, w), conv.sparse_conv_plain(f, idx, w))
+    gy = torch.randn((6, 3), generator=g)
+    assert torch.equal(conv.sparse_conv_dw(f, idx, gy), conv.sparse_conv_dw_plain(f, idx, gy))
+    wt = w.clone().requires_grad_()
+    conv.sparse_conv(f.requires_grad_(), idx, wt, torch.zeros((10, 27), dtype=torch.int32)
+                     - 1).sum().backward()
+    assert wt.grad is not None
     pos = torch.randn((2048, 3), generator=g)
     q, s = dense_grow._operands(pos, torch.ones(2048, dtype=torch.bool))
     ids = torch.zeros(2048, dtype=torch.int32)

@@ -1,6 +1,7 @@
 """Weight carry-over: flax params + batch_stats of the JAX package's blocks go
 through ``params_from_flax`` into the port's modules, which then compute the
-same function (eval mode, f32, atol = rtol = 1e-5)."""
+same function (eval mode, f32, atol = rtol = 1e-5). The port's modules
+start in torch's training mode, so each is put in eval mode first."""
 
 import jax
 import jax.numpy as jnp
@@ -56,7 +57,7 @@ def test_masked_batchnorm(rng):
     params, stats = carry(variables, rng)
     want = JBN().apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
                        jnp.asarray(mask), False)
-    bn = TBN(6)
+    bn = TBN(6).eval()
     bn.load_state_dict(params_from_flax(params, stats), strict=True)
     got = bn(torch.from_numpy(x), torch.from_numpy(mask))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
@@ -74,7 +75,7 @@ def test_point_mlp_transposes_dense(rng):
     np.testing.assert_array_equal(sd["Dense_0.weight"].numpy(), params["Dense_0"]["kernel"].T)
     want = jm.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
                     jnp.asarray(mask), False)
-    tm = tmod.PointMLP(8, (8,), use_bias=False)
+    tm = tmod.PointMLP(8, (8,), use_bias=False).eval()
     tm.load_state_dict(sd, strict=True)
     got = tm(torch.from_numpy(x), torch.from_numpy(mask))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
@@ -90,7 +91,7 @@ def test_resblock(level, cin, cout):
     variables = jm.init(jax.random.PRNGKey(0), *args)
     params, stats = carry(variables, rng)
     want = jm.apply({"params": params, "batch_stats": stats}, *args)
-    tm = tmod.ResBlock(cin, cout)
+    tm = tmod.ResBlock(cin, cout).eval()
     tm.load_state_dict(params_from_flax(params, stats), strict=True)
     with torch.no_grad():
         got = tm(torch.from_numpy(x), nbr, mask)

@@ -23,7 +23,19 @@
    agree on losses, gradients and proposals; then the shipped bf16 steps, 5
    prepare and 3 full, timed per step and per phase, with launches per step
    and peak memory.
-5. Prints one ``{"kernels": [...]}`` line and, last, the
+5. Kernel E, the per-part probe of A: each part (full, index, gather,
+   contig) against its plain version at the L0 same 16->16 and L1->L0 up
+   64->64 maps, ``full`` bit for bit against A; then the probe's own path
+   (``bench_conv_parts.run``) times every part.
+6. Drives the third main path, full-scene serving through the eval CLI's
+   code path (``cli/eval.py:build_evaluator``) from a port checkpoint of
+   seeded random weights, on ``conf/eval.yaml``'s flagship (the same model
+   on ``treeins_rad8``, 32,768-row tiles) and the JAX package's
+   ``bench.py:measure_e2e`` forest: a quarter of it in f32 with the kernels
+   and with the plain versions, which must agree on the labels; then the
+   whole ~500k-point scene in bf16 at 1 and 2 tiles per dispatch, each run
+   once warm and once timed per phase.
+7. Prints one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed phase ends the run with a non-zero exit code and no result line.
@@ -42,8 +54,10 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -55,8 +69,15 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 
+_log_file = None  # chiprun_out/chip_smoke.log once main() runs
+
+
 def log(*a):
+    """Print a line, and keep it in chiprun_out/chip_smoke.log (a remote
+    runner may return only the end of the output)."""
     print(*a, flush=True)
+    if _log_file is not None:
+        print(*a, file=_log_file, flush=True)
 
 
 def card_line() -> str:
@@ -115,10 +136,10 @@ def plain_kernels():
 def kernels():
     """Launch counters: kernel A counts its forward and its dX role apart."""
     from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow, meanshift
-    from panopticsegforlargescalepointcloud_tpu_torch.ops import conv
+    from panopticsegforlargescalepointcloud_tpu_torch.ops import conv, conv_parts
 
     return {"A": conv.KERNEL, "A_dx": conv.KERNEL_DX, "B": dense_grow.KERNEL,
-            "C": meanshift.KERNEL, "D": conv.KERNEL_DW}
+            "C": meanshift.KERNEL, "D": conv.KERNEL_DW, "E": conv_parts.KERNEL}
 
 
 def reset_counts():
@@ -151,7 +172,7 @@ def conv_shapes(cfg, hier):
     ]
 
 
-def phase_conv(cfg, hier, gen_seed: int):
+def phase_conv(cfg, hier, gen_seed: int, tag: str = "A"):
     """Kernel A against its plain version on the main path's maps."""
     import torch
 
@@ -196,7 +217,7 @@ def phase_conv(cfg, hier, gen_seed: int):
                        bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
                        ok=ok)
             rows.append(rec)
-            log("A", json.dumps(rec))
+            log(tag, json.dumps(rec))
             if not ok:
                 fails.append(f"A {label} {rec['dtype']}: err {err} > tol {tol}")
             if label == "L0 same 16->16" and dt == torch.bfloat16:
@@ -321,7 +342,7 @@ def pull_operands(cfg, db, t: int, seed: int):
     return qmat, smat, ids.contiguous(), init.float().contiguous()
 
 
-def phase_pull(cfg, db, t: int):
+def phase_pull(cfg, db, t: int, tag: str = "B"):
     """Kernel B against its plain version: identical results expected."""
     import torch
 
@@ -350,12 +371,13 @@ def phase_pull(cfg, db, t: int):
     rec = dict(t=t, differing_rows=ndiff, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                library_ms=None, bound_ms=max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations", ok=ok)
-    log("B", json.dumps(rec))
+    log(tag, json.dumps(rec))
     fails = [] if ok else [f"B: {ndiff} of {t} rows differ"]
     return rec, fails
 
 
-def phase_meanshift(bsz: int, s: int, np_: int, e: int, bandwidth: float, seed: int):
+def phase_meanshift(bsz: int, s: int, np_: int, e: int, bandwidth: float, seed: int,
+                    tag: str = "C"):
     """Kernel C against its plain version: counts exact, means rtol 1e-5."""
     import torch
 
@@ -390,7 +412,7 @@ def phase_meanshift(bsz: int, s: int, np_: int, e: int, bandwidth: float, seed: 
     rec = dict(b=bsz, s=s, np=np_, e=e, counts_equal=cnt_ok, max_abs_err=err, ms=ms,
                plain_ms=plain_ms, library_ms=None, bound_ms=max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations", ok=cnt_ok and mean_ok)
-    log("C", json.dumps(rec))
+    log(tag, json.dumps(rec))
     fails = [] if rec["ok"] else [f"C: counts equal {cnt_ok}, max err {err}"]
     return rec, fails
 
@@ -654,6 +676,251 @@ def train_steps_bf16(cfg, arrays, seed: int, n_prepare: int = 5, n_full: int = 3
     return launches, res, fails
 
 
+# ---------------------------------------------------------------- kernel E
+
+
+def phase_parts(cfg, hier, gen_seed: int):
+    """Kernel E against its plain versions at the probe's two shapes, bf16
+    and f32: ``index`` bit for bit, the others within 1e-4 of max |out|
+    (f32 sums in another order), ``full`` bit for bit against kernel A."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_conv_parts import shapes
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.conv import sparse_conv_fwd
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.conv_parts import (
+        PARTS,
+        sparse_conv_part,
+        sparse_conv_part_plain,
+    )
+
+    dev = hier.same_maps[0].device
+    gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    rows, fails = [], []
+    for label, nbr, cin, cout, n_in, same in shapes(hier, cfg.in_feat):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((n_in, cin), generator=gen, device=dev).to(dt)
+            w = (torch.randn((27, cin, cout), generator=gen, device=dev)
+                 * math.sqrt(2.0 / (27 * cout))).to(dt)
+            for part in PARTS:
+                if part == "contig" and not same:
+                    continue
+                got = sparse_conv_part(part, x, nbr, w)
+                want = sparse_conv_part_plain(part, x, nbr, w)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                tol = 0.0 if part == "index" else 1e-4 * max(float(want.abs().max()), 1e-30)
+                ok = bool(torch.isfinite(got).all()) and err <= tol
+                rec = dict(shape=label, dtype=str(dt).split(".")[-1], part=part,
+                           max_abs_err=err, tol=tol, ok=ok)
+                if part == "full":
+                    rec["equals_A"] = bool(torch.equal(got, sparse_conv_fwd(x, nbr, w)))
+                    ok = ok and rec["equals_A"]
+                if part == "full" and label.startswith("L0") and dt == torch.bfloat16:
+                    rec["plain_ms"] = cuda_ms(lambda: sparse_conv_part_plain(part, x, nbr, w),
+                                              iters=3, warmup=1)
+                rows.append(rec)
+                log("E", json.dumps(rec))
+                if not ok:
+                    fails.append(f"E {label} {rec['dtype']} {part}: {rec}")
+    return rows, fails
+
+
+def probe_path(cfg, hier):
+    """The probe's own path (``bench_conv_parts.run``, the entry point of
+    ``python3 -m ...bench_conv_parts``): every part timed at both shapes."""
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_conv_parts import run
+
+    recs = run(hier, cfg.in_feat)
+    for rec in recs:
+        log("E probe", json.dumps(rec))
+    return recs
+
+
+# ------------------------------------------------------------ full-scene serving
+
+
+def serving_checkpoint(ckpt_dir: str, seed: int, **budget_overrides) -> None:
+    """A port checkpoint of ``flagship.random_model`` weights whose run
+    config is ``conf/eval.yaml``'s (plus ``budget_overrides``)."""
+    from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import model_config
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import random_model, serving_yaml
+    from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
+
+    run_cfg = serving_yaml()
+    run_cfg["budget_overrides"] = dict(budget_overrides)
+    model = random_model(model_config(run_cfg)[0], seed)
+    ModelCheckpoint(ckpt_dir, run_config=run_cfg).save_best_models_under_current_metrics(
+        {"state_dict": model.state_dict()}, None, {})
+
+
+def scene_labels(out_dir: str):
+    from panopticsegforlargescalepointcloud_tpu_torch.data.ply import read_ply
+
+    sem = read_ply(os.path.join(out_dir, "Semantic_results_forEval_0.ply"))["preds"]
+    ins = read_ply(os.path.join(out_dir, "Instance_Results_forEval0.ply"))["preds"]
+    return sem.astype(np.int64), ins.astype(np.int64)
+
+
+def partition_agreement(a, b) -> float:
+    """Share of points whose label in ``b`` is the one that ``a``'s label
+    maps to (each label of ``a`` mapped to its most-overlapping label of
+    ``b``), the smaller of the two directions: 1.0 when the two
+    partitions are the same up to relabelling."""
+    def one_way(x, y):
+        pairs, counts = np.unique(np.stack([x, y]), axis=1, return_counts=True)
+        best = {}
+        for (lx, ly), c in zip(pairs.T, counts):
+            if c > best.get(lx, (0, None))[0]:
+                best[lx] = (c, ly)
+        return sum(c for c, _ in best.values()) / len(x)
+
+    return min(one_way(a, b), one_way(b, a))
+
+
+def scene_f32(tmp: str, seed: int):
+    """A quarter of the forest through the eval CLI's path in f32, once
+    with the kernels and once with the plain versions: per-point semantic
+    labels >= 99.9% identical, the instance partition identical up to
+    relabelling on >= 99% of points. ``min_score`` 0 keeps every cluster
+    that survives NMS and the size filter (random weights score most
+    clusters below the shipped 0.5), so that there are instances to
+    compare."""
+    from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import build_evaluator
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import write_forest_scene
+
+    ply = os.path.join(tmp, "forest_quarter.ply")
+    points = write_forest_scene(ply, quarter=True)
+    ckpt = os.path.join(tmp, "ckpt_f32")
+    serving_checkpoint(ckpt, seed, compute_dtype="float32", min_score=0.0)
+    labels = {}
+    for name, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
+        out = os.path.join(tmp, f"f32_{name}")
+        ev, run_kwargs, _, _ = build_evaluator([f"checkpoint_dir={ckpt}",
+                                                f"data.files.test=[{ply}]",
+                                                "tiles_per_dispatch=1"])
+        with ctx():
+            rep = ev.run(out_dir=out, **run_kwargs)[0]
+        labels[name] = (scene_labels(out), rep)
+    (ks, ki), krep = labels["kernels"]
+    (ps, pi), prep = labels["plain"]
+    res = dict(points=points, semantic_identical=float((ks == ps).mean()),
+               instance_partition_agreement=partition_agreement(ki, pi),
+               instances=[int(len(np.unique(x[x >= 0]))) for x in (ki, pi)],
+               meanPQ=[krep["meanPQ"], prep["meanPQ"]], mIoU=[krep["mIoU"], prep["mIoU"]])
+    log("scene f32 kernel vs plain", json.dumps(res))
+    fails = [] if min(res["instances"]) > 0 else ["scene f32: no instances to compare"]
+    if res["semantic_identical"] < 0.999:
+        fails.append(f"scene f32 semantic labels identical {res['semantic_identical']} < 0.999")
+    if res["instance_partition_agreement"] < 0.99:
+        fails.append(f"scene f32 instance partition agreement "
+                     f"{res['instance_partition_agreement']} < 0.99")
+    return fails
+
+
+def scene_bf16(tmp: str, seed: int, groups=(1, 2)):
+    """The whole forest (~500k points) through the eval CLI's path in bf16,
+    as shipped, from a port checkpoint: per tiles_per_dispatch g, one warm
+    run, then one timed run without phase syncs (counts reset just before
+    it and read just after) and one with them (the phase split)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import build_evaluator
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import write_forest_scene
+
+    ply = os.path.join(tmp, "forest.ply")
+    points = write_forest_scene(ply)
+    ckpt = os.path.join(tmp, "ckpt_bf16")
+    serving_checkpoint(ckpt, seed)
+    fails, res, launches = [], {}, {"A": 0, "B": 0, "C": 0}
+    for g in groups:
+        args = [f"checkpoint_dir={ckpt}", f"data.files.test=[{ply}]", f"tiles_per_dispatch={g}"]
+        t0 = time.perf_counter()
+        ev, run_kwargs, _, _ = build_evaluator(args)
+        setup_s = time.perf_counter() - t0
+        out = os.path.join(tmp, f"bf16_g{g}")
+        ev.run(out_dir=out, **run_kwargs)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = ev.run(out_dir=out, **run_kwargs)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        timer = PhaseTimer()
+        tev, _, _, _ = build_evaluator(args, timer=timer)
+        t0 = time.perf_counter()
+        tev.run(out_dir=out, **run_kwargs)
+        wall_phased = time.perf_counter() - t0
+        tiles = len(ev.dataset.test_tiles(0))
+        for k in launches:
+            launches[k] += counts[k]
+            if counts[k] <= 0:
+                fails.append(f"kernel {k} not launched in the bf16 scene at g={g}")
+        sem, ins = scene_labels(out)
+        res[f"g{g}"] = dict(
+            s_per_scene=wall, points_per_s=points / wall, s_per_scene_with_phase_syncs=wall_phased,
+            setup_s=setup_s, tiles=tiles, dispatches=-(-tiles // g), points=points,
+            phases_s={k: v / 1e3 for k, v in timer.ms.items()},
+            launches_per_scene={k: counts[k] for k in ("A", "B", "C")},
+            cluster_overflow=ev.last_overflow["cluster_overflow"],
+            scorer_overflow=ev.last_overflow["scorer_overflow"],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            instances=int(len(np.unique(ins[ins >= 0]))),
+            meanPQ=rep["meanPQ"], mIoU=rep["mIoU"], F1=rep["F1"],
+        )
+        log(f"scene bf16 g={g}", json.dumps(res[f"g{g}"]))
+        if not all(math.isfinite(rep[k]) for k in ("meanPQ", "mIoU", "F1", "vote_miou")):
+            fails.append(f"scene bf16 g={g}: non-finite report {rep}")
+        if len(sem) != points:
+            fails.append(f"scene bf16 g={g}: {len(sem)} labels for {points} points")
+    if len(groups) > 1:
+        a, b = (scene_labels(os.path.join(tmp, f"bf16_g{g}")) for g in groups[:2])
+        res["g2_vs_g1_semantic_identical"] = float((a[0] == b[0]).mean())
+        res["g2_vs_g1_instance_partition_agreement"] = partition_agreement(a[1], b[1])
+    log("scene summary", json.dumps(res))
+    return launches, res, fails
+
+
+def eval_tile_shapes(tmp: str):
+    """Kernels A, B and C held against their plain versions and timed at the
+    serving path's shapes: A on the hierarchy of the forest's largest
+    32,768-row eval tile, B at T = 12,288 (one tile per dispatch) and
+    24,576 (two), C at B = 1 and 2 samples."""
+    from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import model_config
+    from panopticsegforlargescalepointcloud_tpu_torch.data import (
+        PanopticFileDataset,
+        batch_arrays,
+        collate_tiles,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import serving_yaml
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hierarchy
+    from panopticsegforlargescalepointcloud_tpu_torch.train import canonicalize
+    from panopticsegforlargescalepointcloud_tpu_torch.train.evaluator import (
+        eval_tile_capacity,
+        grouped_config,
+    )
+
+    run_cfg = serving_yaml()
+    pcfg, spec = model_config(run_cfg)
+    cap = eval_tile_capacity(run_cfg["data"])
+    ds = PanopticFileDataset(spec, [os.path.join(tmp, "forest.ply")], grid_size=0.2, radius=8.0)
+    tiles = sorted((t for t, _ in ds.test_tiles(0)), key=lambda t: -len(t["coords"]))
+    fails = []
+    for g in (1, 2):
+        cfg = grouped_config(pcfg, cap, g)
+        db = canonicalize(*batch_arrays(collate_tiles(tiles[:g], capacity=cap * g,
+                                                      num_tiles=g)))
+        if g == 1:
+            hier = build_hierarchy(db.grid, cfg.num_down)
+            fails += phase_conv(cfg, hier, gen_seed=9, tag="eval tile A")[2]
+        fails += phase_pull(cfg, db, cfg.resolved_point_cap(db.grid.capacity),
+                            tag=f"eval tile B g={g}")[1]
+        fails += phase_meanshift(g, cfg.ms_max_seeds, cfg.ms_point_cap, cfg.embed_dim,
+                                 cfg.bandwidth, seed=3, tag=f"eval tile C g={g}")[1]
+    return fails
+
+
 def main() -> int:
     import torch
 
@@ -674,6 +941,8 @@ def main() -> int:
     _cuda.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
+    global _log_file
+    _log_file = open(os.path.join(OUT_DIR, "chip_smoke.log"), "w")
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as fh:
         fh.write(_cuda.build_log)
 
@@ -695,6 +964,9 @@ def main() -> int:
     c_rec, f = phase_meanshift(cfg.num_samples, cfg.ms_max_seeds, cfg.ms_point_cap,
                                cfg.embed_dim, cfg.bandwidth, seed=2)
     fails += f
+    e_rows, f = phase_parts(cfg, hier, gen_seed=8)
+    fails += f
+    log(f"kernel phases done: {time.perf_counter() - t0:.1f} s")
     reset_counts()  # kernel-phase launches do not count for the main paths
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -713,6 +985,20 @@ def main() -> int:
                     cluster_overflow=r["last_metrics"].get("cluster_overflow"),
                     peak_mem_gib=r["peak_mem_gib"], launches_per_step=r["launches_per_step"])
         for phase, r in train_res.items()}))
+    log(f"eval forward and train paths done: {time.perf_counter() - t0:.1f} s")
+
+    reset_counts()
+    probe_recs = probe_path(cfg, hier)
+    probe_launches = read_counts()["E"]
+    if probe_launches <= 0:
+        fails.append("kernel E not launched on the probe's path")
+    with tempfile.TemporaryDirectory() as tmp:
+        fails += scene_f32(tmp, seed=5)
+        log(f"scene f32 done: {time.perf_counter() - t0:.1f} s")
+        scene_launches, _, f = scene_bf16(tmp, seed=5)
+        fails += f
+        fails += eval_tile_shapes(tmp)
+    log(f"scene bf16 done: {time.perf_counter() - t0:.1f} s")
 
     ks = kernels()
     entries = []
@@ -724,16 +1010,32 @@ def main() -> int:
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key]}
         if key == "A":
             by_path["train_steps_dx"] = train_launches["A_dx"]
+        if key in scene_launches:
+            by_path["scene_eval"] = scene_launches[key]
         entries.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         ))
+    # E: the probe's full part at its own shape (L0 same 16->16, bf16); every
+    # part's time rides along
+    e_rep = next(r for r in probe_recs if r["part"] == "full" and r["dtype"] == "bfloat16")
+    e_plain = next(r["plain_ms"] for r in e_rows if "plain_ms" in r)
+    k = ks["E"]
+    entries.append(dict(
+        name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+        launches=probe_launches, launches_by_path={"probe": probe_launches},
+        max_abs_err=max(r["max_abs_err"] for r in e_rows), ms=e_rep["ms"], plain_ms=e_plain,
+        bound_ms=e_rep["bound_ms"], bound_by=e_rep["bound_by"], library_ms=None,
+        parts=[{key: r[key] for key in ("shape", "dtype", "part", "ms", "ns_per_tile_offset",
+                                        "bound_ms")} for r in probe_recs],
+    ))
     if fails:
         for msg in fails:
             print("FAIL:", msg, file=sys.stderr)
         return 1
+    log(card_line())
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -742,4 +1044,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if _log_file is not None:
+            _log_file.close()
+    sys.exit(rc)

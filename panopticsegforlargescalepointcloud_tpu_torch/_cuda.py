@@ -35,6 +35,7 @@ _COMMON = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 # (the dense pull relies on IEEE inf).
 _SOURCES = {
     "sparse_conv.cu": [],
+    "sparse_conv_parts.cu": [],
     "sparse_conv_dw.cu": [],
     "dense_pull.cu": ["-fmad=false"],
     "meanshift.cu": ["-fmad=false"],
@@ -61,6 +62,9 @@ def _digest() -> str:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
         h.update(" ".join(_ARCH + _COMMON + _SOURCES[name]).encode())
+    for header in sorted(_CSRC.glob("*.cuh")):  # included by the sources
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -1,10 +1,11 @@
-"""Composed YAML tree -> :class:`PanopticConfig` and :class:`TrainingConfig`.
+"""Composed YAML tree -> :class:`PanopticConfig`, :class:`DatasetSpec` and
+:class:`TrainingConfig`.
 
 Counterpart of the JAX package's ``config/schema.py``
-(``panoptic_config_from_yaml``, ``training_config_from_yaml``). Of the
-training fields, the ones the train step uses are ported (learning rate,
-optimizer, scheduler, weight decay, gradient clip) and the BN momentum
-schedule's, which the trainer reads.
+(``dataset_spec_from_cfg``, ``panoptic_config_from_yaml``,
+``training_config_from_yaml``). Of the training fields, the ones the train
+step uses are ported (learning rate, optimizer, scheduler, weight decay,
+gradient clip) and the BN momentum schedule's, which the trainer reads.
 """
 
 from __future__ import annotations
@@ -12,19 +13,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+from ..data.datasets import NPM3D_SPEC, TREEINS_SPEC, DatasetSpec
 from ..models.pointgroup3heads import PanopticConfig
 
-# (num_classes, stuff_classes) per dataset family, as in the JAX package's
-# data/datasets.py NPM3D_SPEC / TREEINS_SPEC.
-_DATASETS = {
-    "npm3d": (9, (0, 1, 5)),
-    "treeins": (2, (0,)),
-}
 
-
-def dataset_classes(data_cfg: Dict[str, Any]) -> Tuple[int, Tuple[int, ...]]:
+def dataset_spec_from_cfg(data_cfg: Dict[str, Any]) -> DatasetSpec:
     name = str(data_cfg.get("class", "treeins")).lower()
-    return _DATASETS["npm3d" if "npm3d" in name else "treeins"]
+    return NPM3D_SPEC if "npm3d" in name else TREEINS_SPEC
 
 
 @dataclasses.dataclass
@@ -79,23 +74,25 @@ def panoptic_config_from_yaml(
     model_name: str | None = None,
     backbone: str = "paper",
     **overrides,
-) -> PanopticConfig:
-    """Build the model configuration from a composed config tree."""
+) -> Tuple[PanopticConfig, DatasetSpec, TrainingConfig]:
+    """Build (PanopticConfig, DatasetSpec, TrainingConfig) from a composed
+    config tree."""
     models = cfg.get("models", {})
     model_name = model_name or cfg.get("model_name") or next(iter(models))
     if model_name not in models:
         raise KeyError(f"model_name {model_name!r} not in models ({list(models)})")
     m = models[model_name]
     lw = m.get("loss_weights", {})
-    num_classes, stuff = dataset_classes(cfg.get("data", {}))
+    spec = dataset_spec_from_cfg(cfg.get("data", {}))
+    tr = training_config_from_yaml(cfg)
     grid = float(cfg.get("data", {}).get("grid_size", 0.2))
     klass = str(m.get("class", "PointGroup3Heads"))
     family = str(
         m.get("model_family", "embed" if "embed" in klass.lower() else "3heads")
     )
     kwargs = dict(
-        num_classes=num_classes,
-        stuff_classes=stuff,
+        num_classes=spec.num_classes,
+        stuff_classes=spec.stuff_classes,
         feat_dim=4,
         in_feat=int(m.get("feat_size", 16)),
         embed_dim=int(m.get("embed_dim", 5)),
@@ -112,15 +109,18 @@ def panoptic_config_from_yaml(
         ms_point_cap=int(m.get("ms_point_cap", 16384)),
         min_iou_threshold=float(m.get("min_iou_threshold", 0.25)),
         max_iou_threshold=float(m.get("max_iou_threshold", 0.75)),
+        # the model yaml's merge threshold defaults to 0.1, the reference
+        # tracker's effective value (the dataclass default is 0.01)
+        block_merge_th=float(m.get("block_merge_th", 0.1) or 0.1),
         w_semantic=float(lw.get("semantic", 1.0)),
         w_offset_norm=float(lw.get("offset_norm_loss", 0.1)),
         w_offset_dir=float(lw.get("offset_dir_loss", 0.1)),
         w_score=float(lw.get("score_loss", 1.0)),
         w_embed=float(lw.get("embedding_loss", 1.0)),
-        num_samples=int(cfg.get("training", {}).get("batch_size", 4)),
+        num_samples=tr.batch_size,
         backbone=(str(m.get("backbone", backbone)) if backbone == "paper" else backbone),
     )
     if m.get("scorer_bits"):
         kwargs["scorer_bits"] = tuple(int(b) for b in m["scorer_bits"])
     kwargs.update(overrides)
-    return PanopticConfig(**kwargs)
+    return PanopticConfig(**kwargs), spec, tr

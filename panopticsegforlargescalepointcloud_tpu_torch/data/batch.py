@@ -7,7 +7,7 @@ the shape every op of the port consumes.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -91,3 +91,10 @@ def collate_tiles(
         origin_id=origin,
         num_instances=ninst,
     )
+
+
+def batch_arrays(vb: VoxelBatch) -> Tuple[np.ndarray, ...]:
+    """The positional array tuple the eval forward and train step consume
+    (the JAX package's ``train/step.py:batch_arrays`` order)."""
+    return (vb.coords, vb.batch, vb.mask, vb.feats, vb.pos, vb.y, vb.instance_labels,
+            vb.vote_label, vb.origin_id)

@@ -1,11 +1,16 @@
-"""The flagship configuration, its training configuration, its synthetic
-inputs and seeded weights, shared by ``chip_smoke.py``, :mod:`.trace_eval`
-and :mod:`.trace_train`.
+"""The flagship configurations, their synthetic inputs and seeded weights,
+shared by ``chip_smoke.py``, :mod:`.trace_eval`, :mod:`.trace_train` and
+:mod:`.bench_conv_parts`.
 
-Setting IV (``conf/models/panoptic/area4_ablation_3heads_5.yaml``) on the
-NPM3D 0.12 m data yaml, trained as ``conf/training/npm3d.yaml`` with the
-default exponential lr schedule; inputs as the JAX package's
-``bench.py:build_inputs`` (4 synthetic 16 m cylinders in 131,072 rows).
+* Training and the eval-tile forward: Setting IV
+  (``conf/models/panoptic/area4_ablation_3heads_5.yaml``) on the NPM3D
+  0.12 m data yaml, trained as ``conf/training/npm3d.yaml`` with the
+  default exponential lr schedule; inputs as the JAX package's
+  ``bench.py:build_inputs`` (4 synthetic 16 m cylinders in 131,072 rows).
+* Serving: ``conf/eval.yaml``'s defaults, the same model on the FOR-instance
+  data yaml ``treeins_rad8`` (2 classes, 0.2 m grid, 8 m cylinders,
+  32,768-row eval tiles), on the JAX package's ``bench.py:measure_e2e``
+  forest scene (~500k points) from the same seeded draws.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from .config import (
     panoptic_config_from_yaml,
     training_config_from_yaml,
 )
-from .data import collate_tiles, synthetic_tile
+from .data import batch_arrays, collate_tiles, synthetic_tile
 from .models import PanopticConfig, PointGroup3HeadsNet
 from .train.optim import Schedule, make_lr_schedule
 from .train.step import TrainState, init_state
@@ -44,7 +49,7 @@ def _flagship_yaml():
 def flagship_config(num_samples: int = 4, compute_dtype: str = "bfloat16",
                     **overrides) -> PanopticConfig:
     return panoptic_config_from_yaml(_flagship_yaml(), num_samples=num_samples,
-                                     compute_dtype=compute_dtype, **overrides)
+                                     compute_dtype=compute_dtype, **overrides)[0]
 
 
 def flagship_training_config() -> TrainingConfig:
@@ -78,9 +83,45 @@ def build_inputs(num_tiles: int = 4, capacity: int = 131072, seed: int = 0,
                        n_ground=capacity // num_tiles, radius=radius, grid_size=grid_size)
         for _ in range(num_tiles)
     ]
-    vb = collate_tiles(tiles, capacity=capacity, num_tiles=num_tiles)
-    return (vb.coords, vb.batch, vb.mask, vb.feats, vb.pos, vb.y, vb.instance_labels,
-            vb.vote_label, vb.origin_id)
+    return batch_arrays(collate_tiles(tiles, capacity=capacity, num_tiles=num_tiles))
+
+
+def serving_yaml():
+    """``conf/eval.yaml`` composed with its defaults (the run config a
+    serving checkpoint stores)."""
+    return load_config(CONF_DIR, [], root="eval.yaml")
+
+
+def write_forest_scene(path: str, seed: int = 0, quarter: bool = False) -> int:
+    """The JAX package's ``bench.py:measure_e2e`` forest as a .ply: a 35 x
+    35 m plot, 100 trees of 2,000 points and 300,000 ground points, from
+    the same seeded numpy draws in the same order. ``quarter`` keeps the
+    points with x, y < 17.5 m. Returns the point count."""
+    from .data.ply import write_ply
+
+    rng = np.random.default_rng(seed)
+    pts, sem, tid = [], [], []
+    extent, n_trees = 35.0, 100
+    for t in range(n_trees):
+        c = rng.uniform(2, extent - 2, 2)
+        k = 2000
+        xy = c + rng.normal(scale=0.8, size=(k, 2))
+        z = rng.uniform(0, 18, (k, 1)) * rng.uniform(0.5, 1.0)
+        pts.append(np.concatenate([xy, z], 1))
+        sem.append(np.full(k, 2))
+        tid.append(np.full(k, t))
+    k = 300_000
+    pts.append(np.stack([rng.uniform(0, extent, k), rng.uniform(0, extent, k),
+                         rng.normal(scale=0.05, size=k)], 1))
+    sem.append(np.full(k, 1))
+    tid.append(np.full(k, -1))
+    pos = np.concatenate(pts).astype(np.float32)
+    sem, tid = np.concatenate(sem).astype(np.int32), np.concatenate(tid).astype(np.int32)
+    if quarter:
+        keep = (pos[:, 0] < extent / 2) & (pos[:, 1] < extent / 2)
+        pos, sem, tid = pos[keep], sem[keep], tid[keep]
+    write_ply(path, [pos, sem, tid], ["x", "y", "z", "semantic_seg", "treeID"])
+    return len(pos)
 
 
 def random_model(cfg: PanopticConfig, seed: int) -> PointGroup3HeadsNet:

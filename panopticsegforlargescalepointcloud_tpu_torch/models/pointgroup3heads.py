@@ -57,6 +57,7 @@ class PanopticConfig:
     mask_supervise: bool = False
     min_iou_threshold: float = 0.25
     max_iou_threshold: float = 0.75
+    block_merge_th: float = 0.01  # full-scene block merging's IoU threshold
     # loss weights (PointGroup-PAPER yaml loss_weights)
     w_semantic: float = 1.0
     w_offset_norm: float = 0.1
@@ -74,6 +75,10 @@ class PanopticConfig:
     # rows (rounded up to the dense-pull tile, 2048) or an absolute count
     rg_point_cap: float = 0
     min_cluster_size: int = 10
+    # eval-time instance extraction (reference structure_3heads.py:28)
+    nms_threshold: float = 0.3
+    min_cluster_points: int = 100
+    min_score: float = 0.5
     compute_dtype: str = "bfloat16"  # conv gather/GEMM precision (f32 accumulation)
     backbone: str = "paper"  # "paper" (7 levels) | "tiny" (3 levels)
     scorer_bits: Tuple[int, int, int] = (7, 7, 9)

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it imports neither JAX, flax, optax nor the
-JAX package; its entry points (the eval forward's and the train step's)
-default to the GPU and raise without one; its kernel wrappers, the conv's
-backward included, run their plain versions on CPU tensors without counting
-a launch."""
+JAX package; its entry points (the eval forward's, the train step's, the
+full-scene evaluator's and the eval CLI's) default to the GPU and raise
+without one; its kernel wrappers, the conv's backward and the conv probe's
+parts included, run their plain versions on CPU tensors without counting a
+launch."""
 
 import ast
 import json
@@ -54,6 +55,12 @@ def test_package_import_leaves_jax_unloaded():
         "import panopticsegforlargescalepointcloud_tpu_torch.train.optim\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.models.losses\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.trace_train\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.cli.eval\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.train.evaluator\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.eval\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.cluster.nms\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.bench_conv_parts\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -63,6 +70,8 @@ def test_package_import_leaves_jax_unloaded():
     assert not bad, bad
     assert "panopticsegforlargescalepointcloud_tpu_torch.train.step" in mods
     assert "panopticsegforlargescalepointcloud_tpu_torch.train.optim" in mods
+    assert "panopticsegforlargescalepointcloud_tpu_torch.ops.conv_parts" in mods
+    assert "panopticsegforlargescalepointcloud_tpu_torch.data.datasets" in mods
 
 
 def _tiny_arrays():
@@ -127,17 +136,50 @@ def test_train_entry_points_default_to_gpu():
     assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
 
 
+def test_evaluator_defaults_to_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from panopticsegforlargescalepointcloud_tpu_torch.data import (
+        TREEINS_SPEC,
+        PanopticFileDataset,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.data.ply import write_ply
+    from panopticsegforlargescalepointcloud_tpu_torch.models import (
+        PanopticConfig,
+        PointGroup3HeadsNet,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.train.evaluator import FullSceneEvaluator
+
+    rng = np.random.default_rng(0)
+    ply = str(tmp_path / "scene.ply")
+    write_ply(ply, [rng.uniform(0, 4, (300, 3)).astype(np.float32),
+                    np.ones(300, np.int32), np.full(300, -1, np.int32)],
+              ["x", "y", "z", "semantic_seg", "treeID"])
+    ds = PanopticFileDataset(TREEINS_SPEC, [ply], grid_size=0.2, radius=4.0, keep_raw=True)
+    cfg = PanopticConfig(num_classes=2, stuff_classes=(0,), backbone="tiny", in_feat=8,
+                         num_samples=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FullSceneEvaluator(cfg, PointGroup3HeadsNet(cfg), ds, capacity=1024)
+    with pytest.raises(ValueError, match="num_samples=1"):
+        FullSceneEvaluator(PanopticConfig(num_classes=2, stuff_classes=(0,), backbone="tiny",
+                                          in_feat=8, num_samples=2),
+                           PointGroup3HeadsNet(cfg), ds, capacity=1024, device="cpu")
+
+
 def test_wrappers_take_plain_version_on_cpu():
     from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow, meanshift
-    from panopticsegforlargescalepointcloud_tpu_torch.ops import conv
+    from panopticsegforlargescalepointcloud_tpu_torch.ops import conv, conv_parts
 
     g = torch.Generator().manual_seed(0)
-    kernels = (conv.KERNEL, conv.KERNEL_DX, conv.KERNEL_DW, dense_grow.KERNEL, meanshift.KERNEL)
+    kernels = (conv.KERNEL, conv.KERNEL_DX, conv.KERNEL_DW, dense_grow.KERNEL, meanshift.KERNEL,
+               conv_parts.KERNEL)
     before = [k.launches for k in kernels]
     f = torch.randn((10, 4), generator=g)
     idx = torch.randint(-1, 10, (6, 27), generator=g, dtype=torch.int32)
     w = torch.randn((27, 4, 3), generator=g)
     assert torch.equal(conv.sparse_conv(f, idx, w), conv.sparse_conv_plain(f, idx, w))
+    assert torch.equal(conv_parts.sparse_conv_part("gather", f, idx, w),
+                       conv_parts.sparse_conv_part_plain("gather", f, idx, w))
     gy = torch.randn((6, 3), generator=g)
     assert torch.equal(conv.sparse_conv_dw(f, idx, gy), conv.sparse_conv_dw_plain(f, idx, gy))
     wt = w.clone().requires_grad_()

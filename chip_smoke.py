@@ -6,11 +6,18 @@
 1. Prints the card (name, power limit) and builds the CUDA kernels of
    ``panopticsegforlargescalepointcloud_tpu_torch/csrc`` with ``nvcc``.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths give it: A (sparse conv) and D (conv weight
-   gradient) on real maps of a 131,072-row hierarchy in bf16 and f32, B
-   (dense min pull) at T = 49,152, C (mean-shift update) at B = 4, S = 128,
-   Np = 16,384, E = 5. Then the conv's backward (dX by A on the transpose
-   map, dW by D) against autograd of the plain gather conv, at A's shapes.
+   shapes the main paths give it: A (sparse conv), A in its dX role and D
+   (conv weight gradient) at every distinct (map, Cin, Cout) that one bf16
+   full train step of the flagship launches (131,072 rows; backbone and
+   ScoreNet), in bf16 and f32, each also launched twice to check that it
+   repeats bit for bit ("conv" lines, "determinism"); B (dense min pull) at
+   T = 49,152, C (mean-shift update) at B = 4, S = 128, Np = 16,384, E = 5.
+   Then the conv's backward (dX by A on the transpose map, dW by D) against
+   autograd of the plain gather conv. Each kernel time ``ms`` is taken
+   with the calls back to back, as the main paths issue them (a call whose
+   host work outlasts its device work is timed at the host's rate), and
+   ``device_ms`` with the calls queued behind a device sleep (the device's
+   time alone).
 3. Drives the first main path, the eval forward of the flagship Setting IV
    model (paper plan, in_feat 16, 9 classes, 4 tiles of synthetic
    NPM3D-scale data, 131,072 rows, seeded random weights and BN
@@ -35,8 +42,11 @@
    and with the plain versions, which must agree on the labels; then the
    whole ~500k-point scene in bf16 at 1 and 2 tiles per dispatch, each run
    once warm and once timed per phase.
+   A is also held against its plain version at every conv of one eval
+   forward of the forest's largest 32,768-row tile ("eval tile conv").
 7. Prints one ``{"kernels": [...]}`` line and, last, the
-   ``{"ok": true, "device": {...}}`` line.
+   ``{"ok": true, "device": {...}}`` line. Every conv record goes to
+   ``chiprun_out/conv_shapes.json``.
 
 Any failed phase ends the run with a non-zero exit code and no result line.
 Without a CUDA device the script exits with code 2. Long outputs (the
@@ -88,20 +98,12 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0] if res.stdout.strip() else "unknown"
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
-    import torch
+def cuda_ms(fn, iters: int = 10, warmup: int = 2, queued: bool = False) -> float:
+    """Mean ms per call of ``fn()``: ``bench_conv.cuda_ms`` (calls issued back
+    to back; ``queued``: behind a device sleep, the device's time alone)."""
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_conv import cuda_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return timed(fn, iters, warmup, queued)
 
 
 @contextlib.contextmanager
@@ -157,7 +159,7 @@ def read_counts():
 def conv_shapes(cfg, hier):
     """(label, map, Cin, Cout, N_in, transpose map) at distinct convs of the
     paper plan's first levels, plus the up path's 192 -> 192 (12f -> 12f)
-    conv."""
+    conv: the backward's oracle check."""
     f = cfg.in_feat
     g = hier.grids
     s, d, u = hier.same_maps, hier.down_maps, hier.up_maps
@@ -172,110 +174,68 @@ def conv_shapes(cfg, hier):
     ]
 
 
-def phase_conv(cfg, hier, gen_seed: int, tag: str = "A"):
-    """Kernel A against its plain version on the main path's maps."""
+def phase_convs(convs, gen_seed: int, tag: str):
+    """Kernel A (forward and dX roles) and kernel D against their plain
+    versions at every recorded shape, in bf16 and f32: within 1e-4 of the
+    plain result's max |value|, bit-identical on a second launch, and timed
+    beside the plain version, the library call (gather + one ``matmul``)
+    and the bound: ``ms`` with the calls back to back (host work counted
+    where it outlasts the device's), ``device_ms`` queued (device alone)."""
     import torch
 
-    from panopticsegforlargescalepointcloud_tpu_torch.ops.conv import (
-        sparse_conv,
-        sparse_conv_plain,
-    )
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_conv import conv_case
+    from panopticsegforlargescalepointcloud_tpu_torch.ops import conv
 
-    dev = hier.same_maps[0].device
-    gen = torch.Generator(device=dev).manual_seed(gen_seed)
-    rows, fails, rep = [], [], None
-    for label, nbr, cin, cout, n_in, _ in conv_shapes(cfg, hier):
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    rows, fails = [], []
+    for c in convs:
+        role, idx, cin, cout = c["role"], c["idx"], c["cin"], c["cout"]
+        n_out, kvol = idx.shape
         for dt in (torch.bfloat16, torch.float32):
-            x = torch.randn((n_in, cin), generator=gen, device=dev).to(dt)
-            w = (torch.randn((27, cin, cout), generator=gen, device=dev)
-                 * math.sqrt(2.0 / (27 * cout))).to(dt)
-            got = sparse_conv(x, nbr, w)
-            want = sparse_conv_plain(x, nbr, w)
+            case = conv_case(c, dt, gen)
+            run, plain, lib = case["run"], case["plain"], case["lib"]
+            plan = (conv.dw_plan(n_out, kvol, cin, cout, dt) if role == "D"
+                    else conv.conv_plan(n_out, cin, cout, kvol, dt))._asdict()
+            got, want = run(), plain()
+            again = run()
             torch.cuda.synchronize()
             scale = float(want.abs().max())
             err = float((got - want).abs().max())
-            # both accumulate exact products (bf16 x bf16 is exact in f32) in
-            # f32, in different orders over up to 27 * Cin terms
+            # both sum exact products (bf16 x bf16 is exact in f32) in f32, in
+            # different orders over up to 27 * Cin terms (A) or N_out rows (D)
             tol = 1e-4 * max(scale, 1e-30)
-            ok = bool(torch.isfinite(got).all()) and err <= tol
-            nnz = int((nbr >= 0).sum())
-            esz = 2 if dt == torch.bfloat16 else 4
-            n_out = nbr.shape[0]
-            bytes_ = n_in * cin * esz + nbr.numel() * 4 + 27 * cin * cout * esz + n_out * cout * 4
-            flops = 2.0 * nnz * cin * cout
-            peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
-            t_b, t_o = bytes_ / HBM_BPS * 1e3, flops / peak * 1e3
-            ms = cuda_ms(lambda: sparse_conv(x, nbr, w))
-            plain_ms = cuda_ms(lambda: sparse_conv_plain(x, nbr, w), iters=3, warmup=1)
-            idx_z = torch.where(nbr >= 0, nbr, n_in).long()
-            xz = torch.cat([x, x.new_zeros((1, cin))])
-            wf = w.reshape(27 * cin, cout)
-            lib_ms = cuda_ms(lambda: torch.matmul(xz[idx_z].reshape(n_out, 27 * cin), wf),
-                             iters=3, warmup=1)
-            rec = dict(shape=label, dtype=str(dt).split(".")[-1], n_out=n_out, nnz=nnz,
-                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
-                       ok=ok)
+            same = bool(torch.equal(got, again))
+            ok = bool(torch.isfinite(got).all()) and err <= tol and same
+            rec = dict(role=role, shape=f"{c['map']} {cin}->{cout}", dtype=str(dt).split(".")[-1],
+                       n_out=n_out, n_in=c["n_in"], nnz=case["nnz"], plan=plan,
+                       max_abs_err=err, tol=tol, deterministic=same, ms=cuda_ms(run),
+                       device_ms=cuda_ms(run, queued=True),
+                       plain_ms=cuda_ms(plain, iters=2, warmup=1),
+                       library_ms=cuda_ms(lib, iters=2, warmup=1),
+                       library_device_ms=cuda_ms(lib, iters=2, warmup=1, queued=True),
+                       bound_ms=case["bound_ms"], bound_by=case["bound_by"], ok=ok)
             rows.append(rec)
             log(tag, json.dumps(rec))
             if not ok:
-                fails.append(f"A {label} {rec['dtype']}: err {err} > tol {tol}")
-            if label == "L0 same 16->16" and dt == torch.bfloat16:
-                rep = rec
-    worst = max(r["max_abs_err"] for r in rows)
-    return rep, worst, fails
+                fails.append(f"{tag} {role} {rec['shape']} {rec['dtype']}: err {err} > tol {tol} "
+                             f"or not deterministic ({same})")
+    return rows, fails
 
 
-def phase_dw(cfg, hier, gen_seed: int):
-    """Kernel D against its plain version at A's shapes: dW of each conv."""
-    import torch
-
-    from panopticsegforlargescalepointcloud_tpu_torch.ops.conv import (
-        sparse_conv_dw,
-        sparse_conv_dw_plain,
-    )
-
-    dev = hier.same_maps[0].device
-    gen = torch.Generator(device=dev).manual_seed(gen_seed)
-    rows, fails, rep = [], [], None
-    for label, nbr, cin, cout, n_in, _ in conv_shapes(cfg, hier):
-        n_out = nbr.shape[0]
-        for dt in (torch.bfloat16, torch.float32):
-            x = torch.randn((n_in, cin), generator=gen, device=dev).to(dt)
-            g = torch.randn((n_out, cout), generator=gen, device=dev).to(dt)
-            got = sparse_conv_dw(x, nbr, g)
-            want = sparse_conv_dw_plain(x, nbr, g)
-            torch.cuda.synchronize()
-            scale = float(want.abs().max())
-            err = float((got - want).abs().max())
-            # exact products (bf16 x bf16 is exact in f32) summed in f32 over
-            # up to 131,072 rows, in another order than the plain GEMMs
-            tol = 1e-4 * max(scale, 1e-30)
-            ok = bool(torch.isfinite(got).all()) and err <= tol
-            nnz = int((nbr >= 0).sum())
-            esz = 2 if dt == torch.bfloat16 else 4
-            bytes_ = (n_in * cin + n_out * cout) * esz + nbr.numel() * 4 + 27 * cin * cout * 4
-            flops = 2.0 * nnz * cin * cout
-            peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
-            t_b, t_o = bytes_ / HBM_BPS * 1e3, flops / peak * 1e3
-            ms = cuda_ms(lambda: sparse_conv_dw(x, nbr, g))
-            plain_ms = cuda_ms(lambda: sparse_conv_dw_plain(x, nbr, g), iters=3, warmup=1)
-            idx_z = torch.where(nbr >= 0, nbr, n_in).long()
-            xz = torch.cat([x, x.new_zeros((1, cin))])
-            lib_ms = cuda_ms(lambda: torch.matmul(xz[idx_z].reshape(n_out, 27 * cin).T, g),
-                             iters=3, warmup=1)
-            rec = dict(shape=label, dtype=str(dt).split(".")[-1], n_out=n_out, nnz=nnz,
-                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations",
-                       ok=ok)
-            rows.append(rec)
-            log("D", json.dumps(rec))
-            if not ok:
-                fails.append(f"D {label} {rec['dtype']}: err {err} > tol {tol}")
-            if label == "L0 same 16->16" and dt == torch.bfloat16:
-                rep = rec
-    worst = max(r["max_abs_err"] for r in rows)
-    return rep, worst, fails
+def determinism_summary(rows):
+    """Bit-identical second launches: A with an offset split and D with row
+    groups must each have been checked at least once."""
+    split_a = [r for r in rows if r["role"] != "D" and r["dtype"] == "bfloat16"
+               and r["plan"]["splits"] > 1]
+    grouped_d = [r for r in rows if r["role"] == "D" and r["plan"]["groups"] > 1]
+    res = dict(a_split_shapes=len(split_a),
+               a_split_identical=all(r["deterministic"] for r in split_a),
+               d_grouped_shapes=len(grouped_d),
+               d_grouped_identical=all(r["deterministic"] for r in grouped_d),
+               all_identical=all(r["deterministic"] for r in rows))
+    log("determinism", json.dumps(res))
+    ok = (res["a_split_shapes"] > 0 and res["d_grouped_shapes"] > 0 and res["all_identical"])
+    return [] if ok else [f"determinism: {res}"]
 
 
 def phase_backward(cfg, hier, gen_seed: int):
@@ -362,13 +322,16 @@ def phase_pull(cfg, db, t: int, tag: str = "B"):
     err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
     ok = ndiff <= 1e-4 * t
     ms = cuda_ms(lambda: min_pull(qmat, smat, ids, labels, r2), iters=5, warmup=1)
+    device_ms = cuda_ms(lambda: min_pull(qmat, smat, ids, labels, r2), iters=5, warmup=1,
+                        queued=True)
     plain_ms = cuda_ms(lambda: min_pull_plain(qmat, smat, ids, labels, r2), iters=2, warmup=1)
     # the function needs 4 of each operand's 8 rows (the rest are 1 or 0),
     # ids, labels and the output; per pair 3 multiplies and 4 adds
     bytes_ = 2 * 4 * t * 4 + 3 * t * 4
     ops = 7.0 * t * t
     t_b, t_o = bytes_ / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
-    rec = dict(t=t, differing_rows=ndiff, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    rec = dict(t=t, differing_rows=ndiff, max_abs_err=err, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms,
                library_ms=None, bound_ms=max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations", ok=ok)
     log(tag, json.dumps(rec))
@@ -404,13 +367,15 @@ def phase_meanshift(bsz: int, s: int, np_: int, e: int, bandwidth: float, seed: 
     err = float((got - want).abs().max())
     mean_ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
     ms = cuda_ms(lambda: meanshift_update(seeds, x, pvalid, bandwidth), iters=20)
+    device_ms = cuda_ms(lambda: meanshift_update(seeds, x, pvalid, bandwidth), iters=20,
+                        queued=True)
     plain_ms = cuda_ms(lambda: shift_iter_plain(seeds, x, pvalid, bw2), iters=5)
     pairs = bsz * s * np_
     bytes_ = (2 * bsz * s * e + bsz * np_ * e + bsz * np_ + bsz * s) * 4
     ops = pairs * (2.0 * e + 3)
     t_b, t_o = bytes_ / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
     rec = dict(b=bsz, s=s, np=np_, e=e, counts_equal=cnt_ok, max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, library_ms=None, bound_ms=max(t_b, t_o),
+               device_ms=device_ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations", ok=cnt_ok and mean_ok)
     log(tag, json.dumps(rec))
     fails = [] if rec["ok"] else [f"C: counts equal {cnt_ok}, max err {err}"]
@@ -884,41 +849,33 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2)):
 
 def eval_tile_shapes(tmp: str):
     """Kernels A, B and C held against their plain versions and timed at the
-    serving path's shapes: A on the hierarchy of the forest's largest
-    32,768-row eval tile, B at T = 12,288 (one tile per dispatch) and
-    24,576 (two), C at B = 1 and 2 samples."""
-    from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import model_config
-    from panopticsegforlargescalepointcloud_tpu_torch.data import (
-        PanopticFileDataset,
-        batch_arrays,
-        collate_tiles,
+    serving path's shapes: A at every conv of one eval forward of the
+    forest's largest 32,768-row eval tile, B at T = 12,288 (one tile per
+    dispatch) and 24,576 (two), C at B = 1 and 2 samples. Returns A's
+    records and the failures."""
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_conv import (
+        serving_tiles,
+        tile_forward_convs,
     )
-    from panopticsegforlargescalepointcloud_tpu_torch.flagship import serving_yaml
-    from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hierarchy
+    from panopticsegforlargescalepointcloud_tpu_torch.data import batch_arrays, collate_tiles
     from panopticsegforlargescalepointcloud_tpu_torch.train import canonicalize
-    from panopticsegforlargescalepointcloud_tpu_torch.train.evaluator import (
-        eval_tile_capacity,
-        grouped_config,
-    )
+    from panopticsegforlargescalepointcloud_tpu_torch.train.evaluator import grouped_config
 
-    run_cfg = serving_yaml()
-    pcfg, spec = model_config(run_cfg)
-    cap = eval_tile_capacity(run_cfg["data"])
-    ds = PanopticFileDataset(spec, [os.path.join(tmp, "forest.ply")], grid_size=0.2, radius=8.0)
-    tiles = sorted((t for t, _ in ds.test_tiles(0)), key=lambda t: -len(t["coords"]))
-    fails = []
+    pcfg, cap, tiles = serving_tiles(os.path.join(tmp, "forest.ply"))
+    fails, rows = [], []
     for g in (1, 2):
         cfg = grouped_config(pcfg, cap, g)
-        db = canonicalize(*batch_arrays(collate_tiles(tiles[:g], capacity=cap * g,
-                                                      num_tiles=g)))
+        arrays = batch_arrays(collate_tiles(tiles[:g], capacity=cap * g, num_tiles=g))
+        db = canonicalize(*arrays)
         if g == 1:
-            hier = build_hierarchy(db.grid, cfg.num_down)
-            fails += phase_conv(cfg, hier, gen_seed=9, tag="eval tile A")[2]
+            rows, f = phase_convs(tile_forward_convs(cfg, arrays, 9), gen_seed=9,
+                                  tag="eval tile conv")
+            fails += f
         fails += phase_pull(cfg, db, cfg.resolved_point_cap(db.grid.capacity),
                             tag=f"eval tile B g={g}")[1]
         fails += phase_meanshift(g, cfg.ms_max_seeds, cfg.ms_point_cap, cfg.embed_dim,
                                  cfg.bandwidth, seed=3, tag=f"eval tile C g={g}")[1]
-    return fails
+    return rows, fails
 
 
 def main() -> int:
@@ -954,10 +911,12 @@ def main() -> int:
     hier = build_hierarchy(db.grid, cfg.num_down)
     t = cfg.resolved_point_cap(db.grid.capacity)
 
-    a_rep, a_err, f = phase_conv(cfg, hier, gen_seed=1)
-    fails += f
-    d_rep, d_err, f = phase_dw(cfg, hier, gen_seed=4)
-    fails += f
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_conv import train_step_convs
+
+    convs = train_step_convs(cfg, arrays, hier, seed=5)
+    conv_rows, f = phase_convs(convs, gen_seed=1, tag="conv")
+    fails += f + determinism_summary(conv_rows)
+    del convs
     fails += phase_backward(cfg, hier, gen_seed=6)
     b_rec, f = phase_pull(cfg, db, t)
     fails += f
@@ -997,8 +956,19 @@ def main() -> int:
         log(f"scene f32 done: {time.perf_counter() - t0:.1f} s")
         scene_launches, _, f = scene_bf16(tmp, seed=5)
         fails += f
-        fails += eval_tile_shapes(tmp)
+        tile_rows, f = eval_tile_shapes(tmp)
+        fails += f
     log(f"scene bf16 done: {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(OUT_DIR, "conv_shapes.json"), "w") as fh:
+        json.dump({"train_step": conv_rows, "eval_tile": tile_rows}, fh, indent=0)
+
+    def rep(role):  # the kernel line's shape: L0 same 16->16, bf16
+        return next(r for r in conv_rows if r["role"] == role and r["dtype"] == "bfloat16"
+                    and r["shape"] == "L0 same 16->16")
+
+    a_rep, d_rep = rep("A"), rep("D")
+    a_err = max(r["max_abs_err"] for r in conv_rows + tile_rows if r["role"] != "D")
+    d_err = max(r["max_abs_err"] for r in conv_rows if r["role"] == "D")
 
     ks = kernels()
     entries = []
@@ -1015,8 +985,8 @@ def main() -> int:
         entries.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
-            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            ms=rec["ms"], device_ms=rec["device_ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         ))
     # E: the probe's full part at its own shape (L0 same 16->16, bf16); every
     # part's time rides along
@@ -1026,10 +996,11 @@ def main() -> int:
     entries.append(dict(
         name=k.name, route="cuda", source=k.source, replaces=k.replaces,
         launches=probe_launches, launches_by_path={"probe": probe_launches},
-        max_abs_err=max(r["max_abs_err"] for r in e_rows), ms=e_rep["ms"], plain_ms=e_plain,
-        bound_ms=e_rep["bound_ms"], bound_by=e_rep["bound_by"], library_ms=None,
-        parts=[{key: r[key] for key in ("shape", "dtype", "part", "ms", "ns_per_tile_offset",
-                                        "bound_ms")} for r in probe_recs],
+        max_abs_err=max(r["max_abs_err"] for r in e_rows), ms=e_rep["ms"],
+        device_ms=e_rep["device_ms"], plain_ms=e_plain, bound_ms=e_rep["bound_ms"],
+        bound_by=e_rep["bound_by"], library_ms=None,
+        parts=[{key: r[key] for key in ("shape", "dtype", "part", "ms", "device_ms",
+                                        "ns_per_tile_offset", "bound_ms")} for r in probe_recs],
     ))
     if fails:
         for msg in fails:

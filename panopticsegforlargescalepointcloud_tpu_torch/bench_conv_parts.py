@@ -9,44 +9,27 @@ The counterpart of the JAX package's TPU probe
 each part of A's body with CUDA events at two shapes, in bf16 and f32: the
 probe's own shape, the L0 same-level map at 16 -> 16 channels, and A's
 slowest main-path shape, the L1 -> L0 up conv at 64 -> 64 (no ``contig``
-part there: it needs a same-level map). Per part it prints ms per call, ns
-per (tile, offset) and the part's bound (bytes over 3.35 TB/s, or
-operations over the type's peak where that is larger), one JSON object per
-line, after the card's name and power limit. Needs a CUDA device.
+part there: it needs a same-level map). Per part it prints ms per call
+(calls back to back, ``bench_conv.cuda_ms``), device ms (calls queued
+behind a device sleep), ns per (tile, offset) and the part's bound (bytes
+over 3.35 TB/s, or operations over the type's peak where that is larger),
+one JSON object per line, after the card's name and power limit. A (tile, offset) is one of A's
+row tiles x Cout tiles (``ops/conv.py:conv_plan``) x 27 offsets. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 from typing import Dict, List
 
 import torch
 
+from .bench_conv import HBM_BPS, PEAK_FLOPS, card_line, cuda_ms
+from .ops.conv import conv_plan
 from .ops.conv_parts import PARTS, sparse_conv_part
 from .ops.hierarchy import build_hierarchy
-
-# published H100 SXM peaks: HBM bytes/s, dense bf16 tensor-core FLOP/s,
-# f32 FLOP/s outside the tensor cores
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TM, TN = 64, 64  # kernel A's output tile (csrc/sparse_conv_tile.cuh)
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
 
 def shapes(hier, f: int = 16):
     """(label, map, Cin, Cout, N_in, same-level) of the two timed convs."""
@@ -92,22 +75,19 @@ def run(hier, f: int = 16, seed: int = 0, iters: int = 20) -> List[Dict]:
             for part in PARTS:
                 if part == "contig" and not same:
                     continue
-                ms = cuda_ms(lambda: sparse_conv_part(part, x, nbr, w), iters=iters)
-                ny = -(-cout // TN) if part in ("full", "contig") else 1
-                tile_offsets = -(-n_out // TM) * ny * nbr.shape[1]
+                fn = lambda: sparse_conv_part(part, x, nbr, w)  # noqa: E731
+                ms = cuda_ms(fn, iters=iters, warmup=3)
+                device_ms = cuda_ms(fn, iters=iters, warmup=3, queued=True)
+                # (row tile, Cout tile, offset) triples of A's plan in this dtype
+                plan = conv_plan(n_out, cin, cout, nbr.shape[1], dt)
+                ny = plan.n_tiles if part in ("full", "contig") else 1
+                tile_offsets = -(-n_out // plan.bm) * ny * nbr.shape[1]
                 bound, by = part_bound(part, n_in, nbr, cin, cout, dt)
                 recs.append(dict(shape=label, dtype=str(dt).split(".")[-1], part=part,
-                                 n_out=n_out, ms=ms, ns_per_tile_offset=ms * 1e6 / tile_offsets,
+                                 n_out=n_out, ms=ms, device_ms=device_ms,
+                                 ns_per_tile_offset=ms * 1e6 / tile_offsets,
                                  bound_ms=bound, bound_by=by))
     return recs
-
-
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60,
-    )
-    return res.stdout.strip().splitlines()[0] if res.stdout.strip() else "unknown"
 
 
 def main() -> int:

@@ -15,8 +15,12 @@ On the GPU the same question is put to kernel A's own body
   ``out[i] = sum_k [idx[i, k] >= 0] feats[i] @ W[k]`` [N, Cout], on a
   same-level map (N_in == N_out).
 
-On a CUDA tensor :func:`sparse_conv_part` launches the kernel; on a CPU
-tensor it runs :func:`sparse_conv_part_plain`.
+In bf16 the parts are compile-time parts of A's tensor-core body: ``gather``
+is the cp.async ring with a dependent output, ``contig`` the MMAs on
+contiguous rows; in f32, of A's CUDA-core body. Each launch takes A's plan
+(:func:`.conv.conv_plan`), so ``full`` equals A bit for bit. On a CUDA tensor
+:func:`sparse_conv_part` launches the kernel; on a CPU tensor it runs
+:func:`sparse_conv_part_plain`.
 """
 
 from __future__ import annotations
@@ -24,18 +28,18 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
-from .conv import _DTYPES, _check_cuda, _check_map, sparse_conv_plain
+from .conv import _DTYPES, check_operands, conv_plan, sparse_conv_plain
 
 KERNEL = _cuda.Kernel(
     "sparse_conv_parts",
     "pst_sparse_conv_parts",
-    [_cuda.INT] + [_cuda.PTR] * 4 + [_cuda.INT] * 6 + [_cuda.PTR],
+    [_cuda.INT] + [_cuda.PTR] * 5 + [_cuda.INT] * 11 + [_cuda.PTR],
     source="panopticsegforlargescalepointcloud_tpu_torch/csrc/sparse_conv_parts.cu",
     replaces="scripts/bench_winkernel_parts.py:36",
 )
 
 PARTS = ("full", "index", "gather", "contig")
-# the gather part keeps its sums in registers, six 32-channel chunks at most
+# the gather part keeps its sums in registers (f32) or shared memory (bf16)
 GATHER_MAX_CIN = 192
 
 
@@ -87,14 +91,21 @@ def sparse_conv_part(part: str, feats: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"the gather part takes Cin <= {GATHER_MAX_CIN}, got {cin}")
     if feats.device.type == "cpu":
         return sparse_conv_part_plain(part, feats, idx, weights)
-    _check_cuda("sparse_conv_part", feats, weights)
-    _check_map("sparse_conv_part", idx, feats.device)
-    if weights.device != feats.device:
-        raise ValueError("feats and weights must be on one device")
+    check_operands("sparse_conv_part", feats, weights, idx)
+    if part == "gather" and feats.dtype == torch.bfloat16 and cin % 16:
+        raise ValueError(f"the bf16 gather part takes Cin a multiple of 16, got {cin}")
     cout = weights.shape[2]
     width = {"full": cout, "contig": cout, "index": 1, "gather": cin}[part]
     out = torch.empty((n_out, width), dtype=torch.float32, device=feats.device)
+    # A's plan for the parts with its products; the index and gather parts
+    # cover every offset in one pass, with one Cout tile
+    plan = conv_plan(n_out, cin, cout, kvol, feats.dtype)
+    if part not in ("full", "contig"):
+        plan = plan._replace(n_tiles=1, splits=1, kpg=kvol)
+    ws = (torch.empty((plan.splits, n_out, cout), dtype=torch.float32, device=feats.device)
+          if plan.splits > 1 else None)
     KERNEL(PARTS.index(part), feats.data_ptr(), idx.data_ptr(), weights.data_ptr(),
-           out.data_ptr(), n_in, n_out, cin, cout, kvol, _DTYPES[feats.dtype],
+           out.data_ptr(), ws.data_ptr() if ws is not None else None, n_in, n_out, cin, cout,
+           kvol, plan.bm, plan.bn, plan.n_tiles, plan.splits, plan.kpg, _DTYPES[feats.dtype],
            _cuda.stream_ptr(feats.device))
     return out

@@ -6,7 +6,8 @@ Runs the bf16 full train step (clustering, ScoreNet and score loss
 included) of the flagship configuration, from the JAX package's
 initializers, under ``torch.profiler``, after two warm-up steps, and prints
 one JSON line: the host wall time of the traced step, the device-busy time
-(union of GPU kernel intervals) and the idle share, and device time per
+(union of GPU kernel intervals) and the idle share, the device time of each
+of the port's kernels (A, D and their second pass, B, C), and device time per
 kernel name, largest first. The full table goes to
 ``chiprun_out/trace_train.txt``. Without a CUDA device it exits with code 2.
 """
@@ -21,6 +22,17 @@ import time
 from .trace_eval import _union_us
 
 _WARMUP = 2
+# the port's own kernels by the names nvcc gives them: (kernel, name part)
+_FAMILIES = (
+    ("A", "sparse_conv_mma<"),          # forward and dX, bf16
+    ("A f32", "sparse_conv_tile<"),
+    ("D", "sparse_conv_dw_mma<"),
+    ("D f32", "sparse_conv_dw_partial_kernel<"),
+    ("A, D second pass", "ordered_sum_kernel"),
+    ("B", "dense_pull_kernel"),
+    ("C", "ms_partial_kernel"),
+    ("C", "ms_finish_kernel"),
+)
 
 
 def main() -> int:
@@ -52,6 +64,11 @@ def main() -> int:
         per_name[e.name] = per_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
     top = sorted(per_name.items(), key=lambda kv: -kv[1])
+    families = {}
+    for name, us in per_name.items():
+        fam = next((f for f, part in _FAMILIES if part in name), None)
+        if fam is not None:
+            families[fam] = families.get(fam, 0.0) + us / 1e3
     res = dict(
         device=torch.cuda.get_device_name(0),
         wall_ms_per_step=wall_ms,
@@ -59,6 +76,7 @@ def main() -> int:
         device_idle_share=(1.0 - busy_ms / wall_ms) if kernels else "not measured",
         gpu_kernel_launches_per_step=len(kernels),
         loss=float(metrics["loss"]),
+        port_kernels_ms_per_step=families,
         top_kernels_ms_per_step=[(n[:80], us / 1e3) for n, us in top[:16]],
     )
     out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

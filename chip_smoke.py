@@ -10,8 +10,16 @@
    (conv weight gradient) at every distinct (map, Cin, Cout) that one bf16
    full train step of the flagship launches (131,072 rows; backbone and
    ScoreNet), in bf16 and f32, each also launched twice to check that it
-   repeats bit for bit ("conv" lines, "determinism"); B (dense min pull) at
-   T = 49,152, C (mean-shift update) at B = 4, S = 128, Np = 16,384, E = 5.
+   repeats bit for bit ("conv" lines, "determinism"); B (dense min pull
+   over its candidate block pairs) against the all-pairs spec with 0
+   differing rows at T = 49,152, 24,576 and 12,288 on the flagship
+   forward's own region-growing rows, random-class rows and rows placed at
+   the radius far from the origin ("B" lines: pairs evaluated, both
+   bounds, the tables' build); C (the whole mean-shift loop in one launch)
+   against the plain loop at B = 4, S = 128, Np = 16,384, E = 5 (counts and
+   iteration counts exact, seeds within 1e-5), and its one-update form,
+   also against the update with f32 sums; how far the loop with f32 sums
+   lies from the kernel, and from itself in another order, is logged.
    Then the conv's backward (dX by A on the transpose map, dW by D) against
    autograd of the plain gather conv. Each kernel time ``ms`` is taken
    with the calls back to back, as the main paths issue them (a call whose
@@ -23,7 +31,7 @@
    NPM3D-scale data, 131,072 rows, seeded random weights and BN
    statistics): once in f32 with the kernels and once with the plain
    versions, which must agree; then in bf16 as shipped, timed per phase,
-   with every kernel's launch count.
+   with every kernel's launch count (C at most twice per forward).
 4. Drives the second main path, the train step of the same model from the
    JAX package's initializers (Adam, lr 0.001, BN momentum 0.1): one f32
    full step with the kernels and one with the plain versions, which must
@@ -110,38 +118,42 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2, queued: bool = False) -> float
 def plain_kernels():
     """Route every kernel call site to its plain PyTorch version: the conv
     forward and, inside the conv's autograd Function, its dX and dW; the
-    dense pull; the mean-shift update (for the kernel-against-plain
-    comparisons of the whole forward and train step)."""
+    dense pull (the all-pairs spec); the mean-shift loop (for the
+    kernel-against-plain comparisons of the whole forward and train step)."""
     from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow, meanshift
     from panopticsegforlargescalepointcloud_tpu_torch.ops import conv
 
-    saved = (conv.sparse_conv_fwd, conv.sparse_conv_dw, dense_grow.min_pull,
-             meanshift.meanshift_update)
+    saved = (conv.sparse_conv_fwd, conv.sparse_conv_dw, dense_grow.pull_tables,
+             dense_grow.min_pull, meanshift.meanshift_converge)
 
     def conv_plain(feats, idx, weights, kernel=None):
         return conv.sparse_conv_plain(feats, idx, weights)
 
-    def ms_plain(seeds, x, pvalid, bandwidth):
-        return meanshift.shift_iter_plain(seeds, x, pvalid, float(bandwidth) ** 2)
+    def pull_plain(qmat, smat, ids, labels, r2, tables=None):
+        return dense_grow.min_pull_plain(qmat, smat, ids, labels, r2)
 
     conv.sparse_conv_fwd = conv_plain
     conv.sparse_conv_dw = conv.sparse_conv_dw_plain
-    dense_grow.min_pull = dense_grow.min_pull_plain
-    meanshift.meanshift_update = ms_plain
+    dense_grow.pull_tables = lambda qmat, smat, ids, r2: None  # the spec needs none
+    dense_grow.min_pull = pull_plain
+    meanshift.meanshift_converge = meanshift.meanshift_converge_plain
     try:
         yield
     finally:
-        (conv.sparse_conv_fwd, conv.sparse_conv_dw, dense_grow.min_pull,
-         meanshift.meanshift_update) = saved
+        (conv.sparse_conv_fwd, conv.sparse_conv_dw, dense_grow.pull_tables,
+         dense_grow.min_pull, meanshift.meanshift_converge) = saved
 
 
 def kernels():
-    """Launch counters: kernel A counts its forward and its dX role apart."""
+    """Launch counters: kernel A counts its forward and its dX role apart;
+    B_keys, B_blocks and B_cands build B's pair tables."""
     from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow, meanshift
     from panopticsegforlargescalepointcloud_tpu_torch.ops import conv, conv_parts
 
     return {"A": conv.KERNEL, "A_dx": conv.KERNEL_DX, "B": dense_grow.KERNEL,
-            "C": meanshift.KERNEL, "D": conv.KERNEL_DW, "E": conv_parts.KERNEL}
+            "B_keys": dense_grow.KEYS_KERNEL, "B_blocks": dense_grow.BLOCKS_KERNEL,
+            "B_cands": dense_grow.CANDS_KERNEL, "C": meanshift.KERNEL, "D": conv.KERNEL_DW,
+            "E": conv_parts.KERNEL}
 
 
 def reset_counts():
@@ -276,109 +288,289 @@ def phase_backward(cfg, hier, gen_seed: int):
     return fails
 
 
-def pull_operands(cfg, db, t: int, seed: int):
-    """Region-growing operands at the main path's shape: the first T thing
-    rows (by key order) of the batch, ids = batch * C + a random class."""
+def boundary_operands(t: int, radius: float, seed: int):
+    """Rows placed against the skip's margin, on the card: pairs at distance
+    r (1 + d), d in {-1e-6, -3e-7, 0, 3e-7, 1e-6}, the anchors in a cube
+    centred 23 m from the origin and sized for ~30 rows per m^3, so that
+    many pairs cross the blocks of the row order; 6 ids, a tenth of the rows
+    alone in their id, 5% invalid. Returns (pos, ids, valid)."""
     import torch
 
-    from panopticsegforlargescalepointcloud_tpu_torch.cluster.dense_grow import _operands
-    from panopticsegforlargescalepointcloud_tpu_torch.cluster.neighbors import cell_seed_labels
-    from panopticsegforlargescalepointcloud_tpu_torch.cluster.region_grow import _fold_bits
+    rng = np.random.default_rng(seed)
+    half = t // 2
+    side = (half / 30.0) ** (1.0 / 3.0)
+    centre = rng.normal(size=3)
+    centre *= 23.0 / np.linalg.norm(centre)
+    anchor = centre + rng.uniform(-side / 2, side / 2, (half, 3))
+    d = rng.normal(size=(half, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    scale = radius * (1.0 + rng.choice([-1e-6, -3e-7, 0.0, 3e-7, 1e-6], half))
+    pos = np.concatenate([anchor, anchor + d * scale[:, None]]).astype(np.float32)
+    pid = rng.integers(0, 6, half)
+    ids = np.concatenate([pid, pid]).astype(np.int32)
+    lone = rng.random(t) < 0.1
+    ids[lone] = 100 + np.arange(int(lone.sum()))
+    perm = rng.permutation(t)
+    valid = rng.random(t) > 0.05
+    return (torch.from_numpy(pos[perm]).cuda(), torch.from_numpy(ids[perm]).cuda(),
+            torch.from_numpy(valid).cuda())
 
-    dev = db.pos.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    rows = torch.nonzero(db.grid.mask).squeeze(1)[:t]
-    valid = torch.zeros(t, dtype=torch.bool, device=dev)
-    valid[: rows.shape[0]] = True
-    idx = torch.zeros(t, dtype=torch.long, device=dev)
-    idx[: rows.shape[0]] = rows
-    pos = db.pos[idx]
-    cls = torch.randint(0, cfg.num_classes, (t,), generator=gen, device=dev, dtype=torch.int32)
-    ids = (db.grid.batch[idx] * cfg.num_classes + cls).to(torch.int32)
-    qmat, smat = _operands(pos, valid)
-    num_ids = cfg.num_samples * cfg.num_classes
-    init = cell_seed_labels(pos, ids, valid, cfg.cluster_radius, _fold_bits(num_ids),
-                            num_ids=num_ids)
-    return qmat, smat, ids.contiguous(), init.float().contiguous()
+
+def pull_cases(cfg, db, captured):
+    """(kind, T, pos, ids, valid, init) of every pull check: the forward's
+    own region-growing rows, random-class rows and boundary rows at T =
+    49,152, 24,576 and 12,288."""
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_cluster import (
+        SIZES,
+        forward_operands,
+        init_labels,
+        random_class_operands,
+    )
+
+    cases = []
+    for t in SIZES:
+        cases.append(("forward", t) + forward_operands(cfg, captured, t))
+        cases.append(("random_class", t) + random_class_operands(cfg, db, t, seed=3))
+        pos, ids, valid = boundary_operands(t, cfg.cluster_radius, seed=t)
+        cases.append(("boundary", t, pos, ids, valid, init_labels(cfg, pos, ids, valid)))
+    return cases
 
 
-def phase_pull(cfg, db, t: int, tag: str = "B"):
-    """Kernel B against its plain version: identical results expected."""
+def forward_region_growing(cfg, arrays, seed: int):
+    """The region-growing operands of one bf16 eval forward of the flagship
+    (``bench_cluster.captured_region_growing``)."""
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_cluster import (
+        captured_region_growing,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import random_model
+    from panopticsegforlargescalepointcloud_tpu_torch.train import make_eval_forward
+
+    captured = []
+    with captured_region_growing(captured):
+        make_eval_forward(cfg, random_model(cfg, seed))(arrays)
+    return captured
+
+
+def phase_tables(qmat, smat, ids, r2: float, tables):
+    """B's three table kernels against their plain versions on the same
+    inputs: keys, block order, id runs and candidate lists all equal (the
+    kernels round as the plain operations do); each timed back to back and
+    queued, beside its plain version and its bound (bytes each input read
+    once and each output written once; the candidate test's 22 operations
+    per run pair of two blocks that both hold rows)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow as dg
+
+    t = ids.shape[0]
+    nb = t // dg.BR
+    inv_cell = 1.0 / r2 ** 0.5
+    lo = torch.where(dg._valid_rows(qmat, smat)[:, None], smat[:3].T, float("inf")).amin(dim=0)
+    key = dg.row_keys(qmat, smat, ids, lo, inv_cell)
+    key_plain = dg._keys_plain(qmat, smat, ids, lo, inv_cell)
+    perm = torch.argsort(key, stable=True)
+    runs = dg.block_runs(qmat, smat, ids, perm)
+    runs_plain = dg._blocks_plain(qmat, smat, ids, perm)
+    cand, ncand = dg.block_cands(*runs[4:], nb, r2)
+    cand_plain, ncand_plain = dg._cands_plain(*runs_plain[4:], nb, r2)
+    torch.cuda.synchronize()
+    first = torch.arange(nb, device=ids.device)[None, :] < ncand_plain[:, None]
+    same = dict(keys=bool(torch.equal(key, key_plain)),
+                runs=all(bool(torch.equal(a, b)) for a, b in zip(runs, runs_plain)),
+                ncand=bool(torch.equal(ncand, ncand_plain)),
+                cand=bool(torch.equal(torch.where(first, cand, -1),
+                                      torch.where(first, cand_plain, -1))),
+                pull_tables=bool(torch.equal(tables.perm, runs[3])
+                                 and torch.equal(tables.ncand, ncand)))
+    live_runs = (runs[6] <= runs[7]).reshape(nb, dg._SEGS).sum(dim=1).float()
+    run_pairs = float(live_runs.sum()) ** 2
+    ns = nb * dg._SEGS
+    parts = {
+        "keys": (lambda: dg.row_keys(qmat, smat, ids, lo, inv_cell),
+                 lambda: dg._keys_plain(qmat, smat, ids, lo, inv_cell), 32 * t, 0.0),
+        "blocks": (lambda: dg.block_runs(qmat, smat, ids, perm),
+                   lambda: dg._blocks_plain(qmat, smat, ids, perm), 84 * t + 36 * ns, 0.0),
+        "cands": (lambda: dg.block_cands(*runs[4:], nb, r2),
+                  lambda: dg._cands_plain(*runs_plain[4:], nb, r2),
+                  36 * ns + 4 * (int(ncand.sum()) + nb), 22.0 * run_pairs),
+    }
+    rec = dict(equal=same, ok=all(same.values()))
+    for name, (run, plain, bytes_, ops) in parts.items():
+        t_b, t_o = bytes_ / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+        rec[name] = dict(ms=cuda_ms(run, iters=10), device_ms=cuda_ms(run, iters=10, queued=True),
+                         plain_ms=cuda_ms(plain, iters=2, warmup=1), library_ms=None,
+                         bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+    return rec, ([] if rec["ok"] else [f"tables differ from their plain versions: {same}"])
+
+
+def phase_pull(cfg, kind: str, t: int, pos, ids, valid, init, tag: str = "B"):
+    """Kernel B against the all-pairs spec ``min_pull_plain``: 0 differing
+    rows. Times one pull with the tables built (as ``dense_components``
+    issues it), the table build itself, and the spec; logs the pairs the
+    kernel evaluates (its work) and two bounds: ``bound_ms``, the operands
+    read once and the operations of the pairs these inputs need (same id,
+    d2 <= r2, counted by the spec's own pair test), and
+    ``all_pairs_bound_ms``, the operations of all T^2 pairs, the TPU
+    kernel's work."""
     import torch
 
     from panopticsegforlargescalepointcloud_tpu_torch.cluster.dense_grow import (
+        _operands,
         min_pull,
         min_pull_plain,
+        pairs_evaluated,
+        pull_tables,
+        qualifying_pairs,
     )
 
-    qmat, smat, ids, labels = pull_operands(cfg, db, t, seed=3)
+    qmat, smat = _operands(pos, valid)
+    ids = ids.to(torch.int32).contiguous()
+    labels = init.float().contiguous()
     r2 = float(cfg.cluster_radius) ** 2
-    got = min_pull(qmat, smat, ids, labels, r2)
+    tables = pull_tables(qmat, smat, ids, r2)
+    tab_rec, tab_fails = phase_tables(qmat, smat, ids, r2, tables)
+    got = min_pull(qmat, smat, ids, labels, r2, tables)
     want = min_pull_plain(qmat, smat, ids, labels, r2)
     torch.cuda.synchronize()
     same = (got == want) | (torch.isinf(got) & torch.isinf(want))
     ndiff = int((~same).sum())
     fin = torch.isfinite(got) & torch.isfinite(want)
     err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
-    ok = ndiff <= 1e-4 * t
-    ms = cuda_ms(lambda: min_pull(qmat, smat, ids, labels, r2), iters=5, warmup=1)
-    device_ms = cuda_ms(lambda: min_pull(qmat, smat, ids, labels, r2), iters=5, warmup=1,
-                        queued=True)
-    plain_ms = cuda_ms(lambda: min_pull_plain(qmat, smat, ids, labels, r2), iters=2, warmup=1)
-    # the function needs 4 of each operand's 8 rows (the rest are 1 or 0),
-    # ids, labels and the output; per pair 3 multiplies and 4 adds
-    bytes_ = 2 * 4 * t * 4 + 3 * t * 4
-    ops = 7.0 * t * t
-    t_b, t_o = bytes_ / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
-    rec = dict(t=t, differing_rows=ndiff, max_abs_err=err, ms=ms, device_ms=device_ms,
-               plain_ms=plain_ms,
+    pull = lambda: min_pull(qmat, smat, ids, labels, r2, tables)  # noqa: E731
+    build = lambda: pull_tables(qmat, smat, ids, r2)  # noqa: E731
+    pairs = pairs_evaluated(tables)
+    needed = qualifying_pairs(qmat, smat, ids, r2)
+    # per row: (q0, q1, q2, qn) and (x, y, z, pn) in block order, id, label,
+    # out; per pair 3 multiplies and 4 adds
+    bytes_ = 44 * t
+    t_b = bytes_ / HBM_BPS * 1e3
+    t_o = 7.0 * needed / F32_FLOPS * 1e3
+    rec = dict(operands=kind, t=t, valid_rows=int(valid.sum()), differing_rows=ndiff,
+               tables=tab_rec,
+               max_abs_err=err, pairs_evaluated=pairs, pairs_share=pairs / (t * t),
+               pairs_needed=needed, pairs_needed_share=needed / (t * t),
+               evaluated_bound_ms=max(t_b, 7.0 * pairs / F32_FLOPS * 1e3),
+               max_candidates=int(tables.ncand.max()),
+               ms=cuda_ms(pull, iters=20), device_ms=cuda_ms(pull, iters=20, queued=True),
+               tables_ms=cuda_ms(build, iters=5), tables_device_ms=cuda_ms(build, iters=5,
+                                                                           queued=True),
+               plain_ms=cuda_ms(lambda: min_pull_plain(qmat, smat, ids, labels, r2), iters=2,
+                                warmup=1),
                library_ms=None, bound_ms=max(t_b, t_o),
-               bound_by="bytes" if t_b >= t_o else "operations", ok=ok)
+               bound_by="bytes" if t_b >= t_o else "operations",
+               all_pairs_bound_ms=7.0 * t * t / F32_FLOPS * 1e3, ok=ndiff == 0)
     log(tag, json.dumps(rec))
-    fails = [] if ok else [f"B: {ndiff} of {t} rows differ"]
-    return rec, fails
+    fails = [] if rec["ok"] else [f"{tag} {kind} T={t}: {ndiff} of {t} rows differ"]
+    return rec, fails + [f"{tag} {kind} T={t}: {m}" for m in tab_fails]
+
+
+def shift_iter_f32(seeds, x, pvalid, bw2: float):
+    """One update as the JAX package's ``_shift_iter`` writes it, with f32
+    sums (``shift_iter_plain`` sums in f64 and rounds once)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster.meanshift import _pair_d2
+
+    within = (_pair_d2(seeds, x) <= bw2) & pvalid[:, None, :]
+    w = within.float()
+    cnt = w.sum(dim=-1)
+    new = (w @ x) / cnt.clamp(min=1.0)[..., None]
+    return torch.where((cnt > 0)[..., None], new, seeds), cnt
+
+
+def loop_agreement(a, b):
+    """Seeds whose counts or iteration counts differ between two runs of
+    the loop (seeds, counts, iterations), and the largest seed difference."""
+    return dict(counts_differ=int((a[1] != b[1]).sum()),
+                iterations_differ=int((a[2] != b[2]).sum()),
+                max_abs_err=float((a[0] - b[0]).abs().max()))
+
+
+def f32_reference(seeds, svalid, x, pvalid, bandwidth: float, max_iter: int, got):
+    """The kernel's loop against the loop with f32 sums (``shift_iter_f32``)
+    on the card (cuBLAS's order) and on the host (the CPU BLAS's order),
+    and the two f32 orders against each other: how far f32 sums alone move
+    the loop's result."""
+    from unittest import mock
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster import meanshift
+
+    with mock.patch.object(meanshift, "shift_iter_plain", shift_iter_f32):
+        card = meanshift.meanshift_converge_plain(seeds, svalid, x, pvalid, bandwidth, max_iter)
+        host = meanshift.meanshift_converge_plain(
+            *(a.cpu() for a in (seeds, svalid, x, pvalid)), bandwidth, max_iter)
+    card, host, got = ([a.cpu() for a in r] for r in (card, host, got))
+    return dict(kernel_vs_f32_card=loop_agreement(got, card),
+                kernel_vs_f32_host=loop_agreement(got, host),
+                f32_card_vs_f32_host=loop_agreement(card, host))
 
 
 def phase_meanshift(bsz: int, s: int, np_: int, e: int, bandwidth: float, seed: int,
-                    tag: str = "C"):
-    """Kernel C against its plain version: counts exact, means rtol 1e-5."""
+                    tag: str = "C", max_iter: int = 100):
+    """Kernel C against its plain versions on seeded blobs: the whole loop
+    (``meanshift_converge`` against ``meanshift_converge_plain``: counts
+    exact at every seed, iteration counts equal, seeds within 1e-5) and one
+    update (``meanshift_update`` against ``shift_iter_plain`` and against
+    ``shift_iter_f32``: counts exact, seeds within 1e-5). The kernel and
+    ``shift_iter_plain`` sum in f64 and round once (see
+    ``csrc/meanshift.cu``), so the seeds agree to the bit unless an f64 sum
+    falls on an f32 rounding boundary; ``f32_reference`` logs how far the
+    f32-sum loop is from the kernel and from itself in another order. Times
+    the loop; the bound counts the points once and, per seed, (iterations
+    + 1) x Np pairs of 3E + 4 operations."""
     import torch
 
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_cluster import blobs
     from panopticsegforlargescalepointcloud_tpu_torch.cluster.meanshift import (
         _bin_seeds,
+        meanshift_converge,
+        meanshift_converge_plain,
         meanshift_update,
         shift_iter_plain,
     )
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    centers = torch.randn((bsz, 24, e), generator=gen, device=dev) * 2.0
-    pick = torch.randint(0, 24, (bsz, np_), generator=gen, device=dev)
-    x = (torch.gather(centers, 1, pick[..., None].expand(bsz, np_, e))
-         + 0.3 * torch.randn((bsz, np_, e), generator=gen, device=dev)).contiguous()
-    pvalid = torch.rand((bsz, np_), generator=gen, device=dev) > 0.1
-    seeds, _ = _bin_seeds(x, pvalid, bandwidth, s)
+    x, pvalid = blobs(bsz, np_, e, seed)
+    seeds, svalid = _bin_seeds(x, pvalid, bandwidth, s)
     seeds = seeds.contiguous()
-    bw2 = bandwidth * bandwidth
-    got, gcnt = meanshift_update(seeds, x, pvalid, bandwidth)
-    want, wcnt = shift_iter_plain(seeds, x, pvalid, bw2)
+    got, gcnt, giters = meanshift_converge(seeds, svalid, x, pvalid, bandwidth, max_iter)
+    want, wcnt, witers = meanshift_converge_plain(seeds, svalid, x, pvalid, bandwidth,
+                                                  max_iter)
+    one, ocnt = meanshift_update(seeds, x, pvalid, bandwidth)
+    wone, wocnt = shift_iter_plain(seeds, x, pvalid, float(bandwidth) ** 2)
     torch.cuda.synchronize()
     cnt_ok = bool(torch.equal(gcnt, wcnt))
+    iters_ok = bool(torch.equal(giters, witers))
     err = float((got - want).abs().max())
-    mean_ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
-    ms = cuda_ms(lambda: meanshift_update(seeds, x, pvalid, bandwidth), iters=20)
-    device_ms = cuda_ms(lambda: meanshift_update(seeds, x, pvalid, bandwidth), iters=20,
-                        queued=True)
-    plain_ms = cuda_ms(lambda: shift_iter_plain(seeds, x, pvalid, bw2), iters=5)
-    pairs = bsz * s * np_
-    bytes_ = (2 * bsz * s * e + bsz * np_ * e + bsz * np_ + bsz * s) * 4
-    ops = pairs * (2.0 * e + 3)
-    t_b, t_o = bytes_ / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
-    rec = dict(b=bsz, s=s, np=np_, e=e, counts_equal=cnt_ok, max_abs_err=err, ms=ms,
-               device_ms=device_ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(t_b, t_o),
-               bound_by="bytes" if t_b >= t_o else "operations", ok=cnt_ok and mean_ok)
+    seeds_ok = err <= 1e-5
+    one_f32, ocnt_f32 = shift_iter_f32(seeds, x, pvalid, float(bandwidth) ** 2)
+    one_err = float((one - wone).abs().max())
+    one_err_f32 = float((one - one_f32).abs().max())
+    one_ok = (bool(torch.equal(ocnt, wocnt)) and one_err <= 1e-5
+              and bool(torch.equal(ocnt, ocnt_f32)) and one_err_f32 <= 1e-5)
+    run = lambda: meanshift_converge(seeds, svalid, x, pvalid, bandwidth, max_iter)  # noqa: E731
+    it = giters[svalid].float()
+    pair_iters = float(((giters + 1) * svalid).sum()) * np_
+    bytes_ = (bsz * np_ * (e * 4 + 1) + bsz * s * (2 * e * 4 + 1 + 4 + 4))
+    t_b = bytes_ / HBM_BPS * 1e3
+    t_o = pair_iters * (3 * e + 4) / F32_FLOPS * 1e3
+    rec = dict(b=bsz, s=s, np=np_, e=e, counts_equal=cnt_ok, iterations_equal=iters_ok,
+               max_abs_err=err, one_update_counts_equal=bool(torch.equal(ocnt, wocnt)),
+               one_update_max_abs_err=one_err,
+               one_update_f32_counts_equal=bool(torch.equal(ocnt, ocnt_f32)),
+               one_update_f32_max_abs_err=one_err_f32,
+               f32_reference=f32_reference(seeds, svalid, x, pvalid, bandwidth, max_iter,
+                                           (got, gcnt, giters)),
+               iterations_max=int(giters.max()), iterations_mean=float(it.mean()),
+               valid_seeds=int(svalid.sum()),
+               ms=cuda_ms(run, iters=10), device_ms=cuda_ms(run, iters=10, queued=True),
+               plain_ms=cuda_ms(lambda: meanshift_converge_plain(
+                   seeds, svalid, x, pvalid, bandwidth, max_iter), iters=2, warmup=1),
+               library_ms=None, bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               ok=cnt_ok and iters_ok and seeds_ok and one_ok)
     log(tag, json.dumps(rec))
-    fails = [] if rec["ok"] else [f"C: counts equal {cnt_ok}, max err {err}"]
+    fails = [] if rec["ok"] else [f"{tag}: counts equal {cnt_ok}, iterations equal "
+                                  f"{iters_ok}, max err {err}, one update ok {one_ok}"]
     return rec, fails
 
 
@@ -474,8 +666,11 @@ def main_path_bf16(cfg, arrays, seed: int, repeats: int, hier_overflow):
     torch.cuda.synchronize()
     launches = read_counts()
     fails = check_output(cfg, db, out)
-    fails += [f"kernel {n} not launched on the eval forward" for n in ("A", "B", "C")
-              if launches[n] <= 0]
+    fails += [f"kernel {n} not launched on the eval forward"
+              for n in ("A", "B", "B_keys", "B_blocks", "B_cands", "C") if launches[n] <= 0]
+    # the whole mean-shift loop is one launch of C (one mean_shift call)
+    if launches["C"] > 2:
+        fails.append(f"kernel C launched {launches['C']} times on the eval forward (> 2)")
     # the forward runs under no_grad: no backward kernel may launch
     fails += [f"backward kernel {n} launched on the eval forward" for n in ("A_dx", "D")
               if launches[n] != 0]
@@ -633,9 +828,12 @@ def train_steps_bf16(cfg, arrays, seed: int, n_prepare: int = 5, n_full: int = 3
             last_metrics=metrics[-1],
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         )
-        need = ["A", "A_dx", "D"] + (["B", "C"] if clustering else [])
+        need = ["A", "A_dx", "D"] + (["B", "B_keys", "B_blocks", "B_cands", "C"]
+                                      if clustering else [])
         fails += [f"kernel {k} not launched in bf16 {phase} step {j}"
                   for j, counts in enumerate(per_step) for k in need if counts[k] <= 0]
+        fails += [f"kernel C launched {counts['C']} times in bf16 {phase} step {j} (> 2)"
+                  for j, counts in enumerate(per_step) if counts["C"] > 2]
     launches = read_counts()
     log("train steps bf16", json.dumps(res))
     return launches, res, fails
@@ -796,7 +994,8 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2)):
     points = write_forest_scene(ply)
     ckpt = os.path.join(tmp, "ckpt_bf16")
     serving_checkpoint(ckpt, seed)
-    fails, res, launches = [], {}, {"A": 0, "B": 0, "C": 0}
+    fails, res = [], {}
+    launches = {k: 0 for k in ("A", "B", "B_keys", "B_blocks", "B_cands", "C")}
     for g in groups:
         args = [f"checkpoint_dir={ckpt}", f"data.files.test=[{ply}]", f"tiles_per_dispatch={g}"]
         t0 = time.perf_counter()
@@ -822,12 +1021,15 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2)):
             launches[k] += counts[k]
             if counts[k] <= 0:
                 fails.append(f"kernel {k} not launched in the bf16 scene at g={g}")
+        if counts["C"] > 2 * -(-tiles // g):
+            fails.append(f"kernel C launched {counts['C']} times in the bf16 scene at g={g} "
+                         f"(> 2 per dispatch)")
         sem, ins = scene_labels(out)
         res[f"g{g}"] = dict(
             s_per_scene=wall, points_per_s=points / wall, s_per_scene_with_phase_syncs=wall_phased,
             setup_s=setup_s, tiles=tiles, dispatches=-(-tiles // g), points=points,
             phases_s={k: v / 1e3 for k, v in timer.ms.items()},
-            launches_per_scene={k: counts[k] for k in ("A", "B", "C")},
+            launches_per_scene={k: counts[k] for k in launches},
             cluster_overflow=ev.last_overflow["cluster_overflow"],
             scorer_overflow=ev.last_overflow["scorer_overflow"],
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -853,6 +1055,7 @@ def eval_tile_shapes(tmp: str):
     forest's largest 32,768-row eval tile, B at T = 12,288 (one tile per
     dispatch) and 24,576 (two), C at B = 1 and 2 samples. Returns A's
     records and the failures."""
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_cluster import random_class_operands
     from panopticsegforlargescalepointcloud_tpu_torch.bench_conv import (
         serving_tiles,
         tile_forward_convs,
@@ -871,7 +1074,8 @@ def eval_tile_shapes(tmp: str):
             rows, f = phase_convs(tile_forward_convs(cfg, arrays, 9), gen_seed=9,
                                   tag="eval tile conv")
             fails += f
-        fails += phase_pull(cfg, db, cfg.resolved_point_cap(db.grid.capacity),
+        t = cfg.resolved_point_cap(db.grid.capacity)
+        fails += phase_pull(cfg, "random_class", t, *random_class_operands(cfg, db, t, seed=3),
                             tag=f"eval tile B g={g}")[1]
         fails += phase_meanshift(g, cfg.ms_max_seeds, cfg.ms_point_cap, cfg.embed_dim,
                                  cfg.bandwidth, seed=3, tag=f"eval tile C g={g}")[1]
@@ -918,8 +1122,12 @@ def main() -> int:
     fails += f + determinism_summary(conv_rows)
     del convs
     fails += phase_backward(cfg, hier, gen_seed=6)
-    b_rec, f = phase_pull(cfg, db, t)
-    fails += f
+    b_rec = None
+    for case in pull_cases(cfg, db, forward_region_growing(cfg, arrays, seed=5)):
+        rec, f = phase_pull(cfg, *case)
+        fails += f
+        if case[:2] == ("forward", t):
+            b_rec = rec
     c_rec, f = phase_meanshift(cfg.num_samples, cfg.ms_max_seeds, cfg.ms_point_cap,
                                cfg.embed_dim, cfg.bandwidth, seed=2)
     fails += f
@@ -988,6 +1196,23 @@ def main() -> int:
             ms=rec["ms"], device_ms=rec["device_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
         ))
+        # B: the work its tables leave (T = 49,152, the forward's own rows)
+        # beside the all-pairs bound; C: the iterations its bound counts
+        extra = {"B": ("t", "pairs_evaluated", "pairs_share", "all_pairs_bound_ms",
+                       "tables_ms", "tables_device_ms"),
+                 "C": ("iterations_max", "iterations_mean")}.get(key, ())
+        entries[-1].update({f: rec[f] for f in extra})
+    # B's table kernels, at the forward's own rows (T = 49,152)
+    for key, part in (("B_keys", "keys"), ("B_blocks", "blocks"), ("B_cands", "cands")):
+        k, rec = ks[key], b_rec["tables"][part]
+        by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
+                   "scene_eval": scene_launches[key]}
+        entries.append(dict(
+            name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=0.0 if b_rec["tables"]["ok"] else None, ms=rec["ms"],
+            device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=None))
     # E: the probe's full part at its own shape (L0 same 16->16, bf16); every
     # part's time rides along
     e_rep = next(r for r in probe_recs if r["part"] == "full" and r["dtype"] == "bfloat16")

@@ -38,6 +38,7 @@ _SOURCES = {
     "sparse_conv_parts.cu": [],
     "sparse_conv_dw.cu": [],
     "dense_pull.cu": ["-fmad=false"],
+    "pull_tables.cu": ["-fmad=false"],
     "meanshift.cu": ["-fmad=false"],
 }
 

@@ -1,8 +1,22 @@
-from .dense_grow import dense_components, min_pull, min_pull_plain
-from .meanshift import mean_shift, meanshift_update, pack_by_sample, shift_iter_plain
+from .dense_grow import (
+    dense_components,
+    min_pull,
+    min_pull_blocks_plain,
+    min_pull_plain,
+    pull_tables,
+)
+from .meanshift import (
+    mean_shift,
+    meanshift_converge,
+    meanshift_converge_plain,
+    meanshift_update,
+    pack_by_sample,
+    shift_iter_plain,
+)
 from .region_grow import region_grow_folded
 
 __all__ = [
-    "dense_components", "mean_shift", "meanshift_update", "min_pull", "min_pull_plain",
-    "pack_by_sample", "region_grow_folded", "shift_iter_plain",
+    "dense_components", "mean_shift", "meanshift_converge", "meanshift_converge_plain",
+    "meanshift_update", "min_pull", "min_pull_blocks_plain", "min_pull_plain",
+    "pack_by_sample", "pull_tables", "region_grow_folded", "shift_iter_plain",
 ]

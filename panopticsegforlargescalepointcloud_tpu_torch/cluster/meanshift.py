@@ -7,9 +7,10 @@ the mean of the valid points within the bandwidth (flat kernel) and freezes
 it once it moves less than 1e-3 * bandwidth; converged seeds are deduplicated
 greedily by population; every point joins its nearest surviving center.
 
-The samples of a batch are one leading dimension: one update of all of them
-is one launch of ``csrc/meanshift.cu`` on a CUDA tensor, or
-:func:`shift_iter_plain` (the JAX package's ``_shift_iter``) on a CPU tensor.
+The samples of a batch are one leading dimension. The whole iteration of
+every seed of every sample is one launch of ``csrc/meanshift.cu`` on a CUDA
+tensor (:func:`meanshift_converge`), or the JAX package's loop around
+:func:`shift_iter_plain` (its ``_shift_iter``) on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -22,13 +23,13 @@ from .. import _cuda
 from ..ops.scatter import scatter_drop, segment_sum
 
 KERNEL = _cuda.Kernel(
-    "meanshift_update",
-    "pst_meanshift_update",
-    [_cuda.PTR] * 6 + [_cuda.INT] * 4 + [_cuda.FLOAT, _cuda.PTR],
+    "meanshift_converge",
+    "pst_meanshift_converge",
+    [_cuda.PTR] * 7 + [_cuda.INT] * 5 + [_cuda.FLOAT, _cuda.FLOAT, _cuda.PTR],
     source="panopticsegforlargescalepointcloud_tpu_torch/csrc/meanshift.cu",
     replaces="panopticsegforlargescalepointcloud_tpu/cluster/pallas_meanshift.py:30",
 )
-_CHUNK = 256  # points per block of the kernel (csrc/meanshift.cu: PC)
+_MAXE = 8  # largest embedding dimension of the kernel (csrc/meanshift.cu: MAXE)
 
 _PRIMES = (73856093, 19349669, 83492791, 49979693, 86028157, 32452867, 67867967,
            2654435761)
@@ -61,17 +62,81 @@ def _pair_d2(seeds: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def shift_iter_plain(seeds, x, pvalid, bw2: float):
     """One flat-kernel update of seeds [B, S, E] over points [B, Np, E]:
-    returns (new seeds, counts [B, S])."""
+    returns (new seeds, counts [B, S]). The sums are taken in f64 and
+    rounded once to f32, as the kernel's are, so that the two agree to the
+    bit wherever an f64 sum does not fall on an f32 rounding boundary."""
     within = (_pair_d2(seeds, x) <= bw2) & pvalid[:, None, :]
-    w = within.float()
-    cnt = w.sum(dim=-1)
-    new = (w @ x) / cnt.clamp(min=1.0)[..., None]
+    w = within.to(torch.float64)
+    cnt = within.sum(dim=-1).to(torch.float32)
+    new = (w @ x.to(torch.float64)).to(torch.float32) / cnt.clamp(min=1.0)[..., None]
     return torch.where((cnt > 0)[..., None], new, seeds), cnt
 
 
+def meanshift_converge_plain(seeds, svalid, x, pvalid, bandwidth: float, max_iter: int):
+    """The JAX package's loop (``_mean_shift_single``) with
+    :func:`shift_iter_plain`, one host check per iteration: each valid,
+    unfrozen seed takes the update; a seed whose shift^2 falls below
+    (1e-3 bw)^2 keeps that step and freezes; the loop stops at ``max_iter``.
+    Returns (seeds, counts at those seeds, updates each seed took [B, S]
+    int32)."""
+    bw2 = float(bandwidth) * float(bandwidth)
+    tol = 1e-3 * float(bandwidth)
+    active = svalid.clone()
+    iters = torch.zeros(svalid.shape, dtype=torch.int32, device=seeds.device)
+    for _ in range(max_iter):
+        if not bool(active.any()):
+            break
+        new, _ = shift_iter_plain(seeds, x, pvalid, bw2)
+        shift2 = _sq_norm(new - seeds)
+        seeds = torch.where(active[..., None], new, seeds)
+        iters = iters + active.to(torch.int32)
+        active = active & ~(shift2 < tol * tol)
+    _, cnt = shift_iter_plain(seeds, x, pvalid, bw2)
+    return seeds, cnt, iters
+
+
+def meanshift_converge(seeds, svalid, x, pvalid, bandwidth: float, max_iter: int):
+    """Every seed's mean-shift loop to its own freeze, in one launch of
+    ``csrc/meanshift.cu`` on a CUDA tensor (:func:`meanshift_converge_plain`
+    on a CPU tensor). seeds [B, S, E] f32, svalid [B, S] bool, x [B, Np, E]
+    f32, pvalid [B, Np] bool -> (seeds [B, S, E], counts [B, S] f32 at the
+    returned seeds, iterations [B, S] int32). The kernel keeps a sample's
+    points in the shared memory of 8 blocks and raises for more (above
+    17,560 points at E = 5)."""
+    b, s, e = seeds.shape
+    np_ = x.shape[1]
+    if (x.shape != (b, np_, e) or pvalid.shape != (b, np_) or svalid.shape != (b, s)
+            or max_iter < 0):
+        raise ValueError("mean shift: seeds [B,S,E], svalid [B,S], points [B,Np,E], "
+                         "pvalid [B,Np], max_iter >= 0")
+    if seeds.device.type == "cpu":
+        return meanshift_converge_plain(seeds, svalid, x, pvalid, bandwidth, max_iter)
+    if seeds.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError("mean shift takes f32 seeds and points")
+    if svalid.dtype != torch.bool or pvalid.dtype != torch.bool:
+        raise TypeError("mean shift takes bool svalid and pvalid")
+    if not all(t.device == seeds.device for t in (svalid, x, pvalid)):
+        raise ValueError("mean shift operands must be on one device")
+    if not all(t.is_contiguous() for t in (seeds, svalid, x, pvalid)):
+        raise ValueError("mean shift needs contiguous operands")
+    if not 1 <= e <= _MAXE:
+        raise ValueError(f"mean shift: embedding dimension {e} not in 1..{_MAXE}")
+    bw2 = float(bandwidth) * float(bandwidth)
+    tol = 1e-3 * float(bandwidth)
+    out = torch.empty_like(seeds)
+    cnt = torch.empty((b, s), dtype=torch.float32, device=seeds.device)
+    iters = torch.empty((b, s), dtype=torch.int32, device=seeds.device)
+    KERNEL(seeds.data_ptr(), svalid.data_ptr(), x.data_ptr(), pvalid.data_ptr(),
+           out.data_ptr(), cnt.data_ptr(), iters.data_ptr(), b, s, np_, e,
+           int(max_iter), bw2, tol * tol, _cuda.stream_ptr(seeds.device))
+    return out, cnt, iters
+
+
 def meanshift_update(seeds, x, pvalid, bandwidth: float):
-    """seeds [B, S, E] f32, x [B, Np, E] f32, pvalid [B, Np] bool ->
-    (new seeds [B, S, E], counts [B, S] f32)."""
+    """One flat-kernel update. seeds [B, S, E] f32, x [B, Np, E] f32, pvalid
+    [B, Np] bool -> (new seeds [B, S, E], counts [B, S] f32 at the input
+    seeds). On a CUDA tensor: two launches of the converge kernel, one
+    iteration for the seeds and none for the counts."""
     b, s, e = seeds.shape
     np_ = x.shape[1]
     if x.shape != (b, np_, e) or pvalid.shape != (b, np_):
@@ -79,20 +144,9 @@ def meanshift_update(seeds, x, pvalid, bandwidth: float):
     bw2 = float(bandwidth) * float(bandwidth)
     if seeds.device.type == "cpu":
         return shift_iter_plain(seeds, x, pvalid, bw2)
-    if seeds.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError("meanshift_update takes f32 seeds and points")
-    if not (x.device == pvalid.device == seeds.device):
-        raise ValueError("meanshift_update operands must be on one device")
-    if not (seeds.is_contiguous() and x.is_contiguous()):
-        raise ValueError("meanshift_update needs contiguous seeds and points")
-    pv = pvalid.to(torch.float32).contiguous()
-    chunks = -(-np_ // _CHUNK)
-    partial = torch.empty((b, chunks, s, e + 1), dtype=torch.float32, device=x.device)
-    new = torch.empty_like(seeds)
-    cnt = torch.empty((b, s), dtype=torch.float32, device=x.device)
-    KERNEL(seeds.data_ptr(), x.data_ptr(), pv.data_ptr(), partial.data_ptr(),
-           new.data_ptr(), cnt.data_ptr(), b, s, np_, e, bw2,
-           _cuda.stream_ptr(x.device))
+    svalid = torch.ones((b, s), dtype=torch.bool, device=seeds.device)
+    new, _, _ = meanshift_converge(seeds, svalid, x, pvalid, bandwidth, 1)
+    _, cnt, _ = meanshift_converge(seeds, svalid, x, pvalid, bandwidth, 0)
     return new, cnt
 
 
@@ -164,27 +218,16 @@ def mean_shift(x: torch.Tensor, valid: torch.Tensor, bandwidth: float,
                max_seeds: int = 256, max_iter: int = 100) -> MeanShiftResult:
     """Batched mean shift. x [B, Np, E] f32, valid [B, Np] bool.
 
-    The iteration runs while any sample has an unfrozen valid seed and fewer
-    than ``max_iter`` iterations are done (one host check per iteration);
-    a sample whose seeds are all frozen is left unchanged by further
-    iterations, so this equals running each sample's loop on its own."""
+    Every seed iterates to its own freeze or ``max_iter``
+    (:func:`meanshift_converge`); a frozen seed never changes again, so this
+    equals running each sample's loop on its own."""
     b, np_, e = x.shape
     dev = x.device
     x = x.float().contiguous()
     bw2 = float(bandwidth) * float(bandwidth)
-    tol = 1e-3 * bandwidth
     seeds, svalid = _bin_seeds(x, valid, bandwidth, max_seeds)
-    seeds = seeds.contiguous()
-    frozen = torch.zeros_like(svalid)
-    for _ in range(max_iter):
-        if not bool((svalid & ~frozen).any()):
-            break
-        new, _ = meanshift_update(seeds, x, valid, bandwidth)
-        shift2 = ((new - seeds) ** 2).sum(dim=-1)
-        upd = torch.where((~frozen & svalid)[..., None], new, seeds)
-        frozen = frozen | (shift2 < tol * tol) | ~svalid
-        seeds = upd.contiguous()
-    _, cnt = meanshift_update(seeds, x, valid, bandwidth)
+    seeds, cnt, _ = meanshift_converge(seeds.contiguous(), svalid.contiguous(), x,
+                                       valid.contiguous(), bandwidth, max_iter)
     alive = svalid & (cnt >= 1)
 
     s = seeds.shape[1]

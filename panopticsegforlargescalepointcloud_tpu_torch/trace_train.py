@@ -29,9 +29,11 @@ _FAMILIES = (
     ("D", "sparse_conv_dw_mma<"),
     ("D f32", "sparse_conv_dw_partial_kernel<"),
     ("A, D second pass", "ordered_sum_kernel"),
-    ("B", "dense_pull_kernel"),
-    ("C", "ms_partial_kernel"),
-    ("C", "ms_finish_kernel"),
+    ("B", "dense_pull_blocks_kernel"),
+    ("B tables", "pull_keys_kernel"),
+    ("B tables", "pull_blocks_kernel"),
+    ("B tables", "pull_cands_kernel"),
+    ("C", "meanshift_converge_kernel<"),
 )
 
 

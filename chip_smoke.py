@@ -52,7 +52,24 @@
    once warm and once timed per phase.
    A is also held against its plain version at every conv of one eval
    forward of the forest's largest 32,768-row tile ("eval tile conv").
-7. Prints one ``{"kernels": [...]}`` line and, last, the
+7. Drives the fourth main path, the trainer, through the train and forward
+   CLIs (``cli/train.py:main``, ``cli/forward.py:main``) with the root
+   config's defaults: Setting IV on ``treeins_rad8``, paper plan,
+   131,072-row batches of 4 tiles, bf16, Adam, 2 prefetch workers, seeded
+   initial weights. The forest above is the train file and its quarter the
+   val file; 2 epochs of 8 steps (``samples_per_epoch`` 32) with the full
+   phase in epoch 2 (``prepare_epoch`` 1) and a full-split validation after
+   each epoch; then the same run directory resumed to epoch 3 (start epoch
+   3, the count going on from 16 to 24); then the forward CLI with that
+   checkpoint over the quarter scene. Every train step must launch A, A's
+   dX and D, and every full step B (and its tables) and C; every logged loss
+   must be finite, ``metrics.jsonl`` must have one line per epoch and the
+   forward PLY one row per scene point with labels in the class range.
+   Per epoch ("trainer epoch" lines): the median s per step, the data and
+   step seconds per step from the trainer's stage timers, the losses, the
+   validation metrics and the peak memory; the whole record goes to
+   ``chiprun_out/trainer.json``.
+8. Prints one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": {...}}`` line. Every conv record goes to
    ``chiprun_out/conv_shapes.json``.
 
@@ -1082,6 +1099,167 @@ def eval_tile_shapes(tmp: str):
     return rows, fails
 
 
+# ------------------------------------------------------------------ the trainer
+
+
+class StepRecorder:
+    """Wraps every train step the trainer builds (``train.trainer``'s
+    ``make_train_step``): per call, the phase, the schedule count before
+    it, the host time to its end (the step ends in a device synchronize),
+    its own kernel launches and its peak device memory."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def installed(self):
+        import torch
+
+        from panopticsegforlargescalepointcloud_tpu_torch.train import trainer as trainer_mod
+
+        make = trainer_mod.make_train_step
+
+        def make_recorded(cfg, model, optimizer, schedule, with_clustering, **kw):
+            step = make(cfg, model, optimizer, schedule, with_clustering, **kw)
+
+            def recorded(arrays, bn_momentum):
+                before = read_counts()
+                count = optimizer.param_groups[0].get("count", 0)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                metrics = step(arrays, bn_momentum)
+                torch.cuda.synchronize()
+                self.calls.append(dict(
+                    phase="full" if with_clustering else "prepare", count=count,
+                    s=time.perf_counter() - t0,
+                    launches={k: v - before[k] for k, v in read_counts().items()},
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+                return metrics
+
+            return recorded
+
+        trainer_mod.make_train_step = make_recorded
+        try:
+            yield self
+        finally:
+            trainer_mod.make_train_step = make
+
+
+def epoch_rows(run_dir: str, calls, steps_per_epoch: int, starts=(1,)):
+    """Per epoch: the median s per step, the data and step seconds per step
+    (``StageTimers``' running means in ``metrics.jsonl``, unrolled; a
+    trainer that starts at an epoch of ``starts`` starts its timers anew),
+    the losses, the peak memory of its steps and its validation metrics."""
+    from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
+
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        lines = [json.loads(line) for line in fh]
+    val = ModelCheckpoint(run_dir).stats.get("val", [])
+    rows, prev, start = [], {}, 1
+    for e, line in enumerate(lines, 1):
+        mine = calls[(e - 1) * steps_per_epoch:e * steps_per_epoch]
+        if e in starts:
+            prev, start = {"data": 0.0, "step": 0.0}, e
+        n = (e - start + 1) * steps_per_epoch  # steps behind the running means
+        tot = {k: line[f"train_time_{k}"] * n for k in prev}
+        rows.append(dict(
+            epoch=e, phase=mine[0]["phase"] if mine else None, steps=len(mine),
+            s_per_step_median=statistics.median(c["s"] for c in mine) if mine else None,
+            data_s_per_step=(tot["data"] - prev["data"]) / steps_per_epoch,
+            step_s_per_step=(tot["step"] - prev["step"]) / steps_per_epoch,
+            loss=line.get("train_loss"), semantic_loss=line.get("train_semantic_loss"),
+            score_loss=line.get("train_score_loss"), lr=line.get("train_lr"),
+            peak_mem_gib=max((c["peak_mem_gib"] for c in mine), default=None),
+            val=val[e - 1] if e - 1 < len(val) else None))
+        prev = tot
+    return lines, rows
+
+
+def trainer_path(tmp: str):
+    """The seventh path: ``cli/train.py:main`` with the root config's
+    defaults (Setting IV on ``treeins_rad8``, paper plan, 131,072-row
+    batches of 4 tiles, bf16, Adam, 2 prefetch workers) on the
+    ``measure_e2e`` forest (train: the whole scene; val: its quarter), 2
+    epochs of 8 steps with the full phase in epoch 2 and a full-split
+    validation after each; then a resume of the same run directory to epoch
+    3; then ``cli/forward.py`` with that checkpoint over the quarter scene.
+    Counts are reset just before the first run and read after the forward."""
+    from panopticsegforlargescalepointcloud_tpu_torch.cli import forward as cli_forward
+    from panopticsegforlargescalepointcloud_tpu_torch.cli import train as cli_train
+    from panopticsegforlargescalepointcloud_tpu_torch.data.ply import read_ply
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import write_forest_scene
+    from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
+
+    train_ply, val_ply = os.path.join(tmp, "train.ply"), os.path.join(tmp, "val.ply")
+    write_forest_scene(train_ply)
+    val_points = write_forest_scene(val_ply, quarter=True)
+    run_dir = os.path.join(tmp, "run")
+    args = [f"data.files.train=[{train_ply}]", f"data.files.val=[{val_ply}]",
+            f"checkpoint_dir={run_dir}", "training.samples_per_epoch=32",
+            "models.PointGroup-PAPER.prepare_epoch=1", "pretty_print=False"]
+    fails, res = [], {}
+    recorder = StepRecorder()
+    reset_counts()
+    with recorder.installed():
+        t0 = time.perf_counter()
+        trainer = cli_train.main(args + ["training.epochs=2"])
+        res["train_s"] = time.perf_counter() - t0
+        spe = trainer.steps_per_epoch
+        first = len(recorder.calls)
+        count_saved = ModelCheckpoint(run_dir).get_optimizer_state()["param_groups"][0]["count"]
+        t0 = time.perf_counter()
+        resumed = cli_train.main(args + ["training.epochs=3"])
+        res["resume_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    written = cli_forward.main([f"checkpoint_dir={run_dir}", f"data.files.test=[{val_ply}]",
+                                f"out_dir={os.path.join(tmp, 'fwd')}"])
+    res["forward_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    lines, rows = epoch_rows(run_dir, recorder.calls, spe, starts=(1, resumed.start_epoch))
+    res.update(steps_per_epoch=spe, epochs=rows, launches=launches, steps=recorder.calls,
+               resume=dict(start_epoch=resumed.start_epoch, count_saved=count_saved,
+                           count_first_resumed_step=recorder.calls[first]["count"]
+                           if len(recorder.calls) > first else None,
+                           count_after=resumed.optimizer.param_groups[0]["count"],
+                           step_after=resumed.state.step))
+    for row in rows:
+        log("trainer epoch", json.dumps(row))
+    # every logged loss finite
+    for line in lines:
+        bad = [k for k, v in line.items() if k.startswith("train_") and not math.isfinite(v)]
+        if bad:
+            fails.append(f"trainer: non-finite {bad} at step {line['step']}")
+    if len(lines) != 3:
+        fails.append(f"trainer: metrics.jsonl has {len(lines)} lines for 3 epochs")
+    # kernels: A, dX and D in every step; B (and its tables) and C in every full step
+    for i, c in enumerate(recorder.calls):
+        need = ["A", "A_dx", "D"] + (["B", "B_keys", "B_blocks", "B_cands", "C"]
+                                      if c["phase"] == "full" else [])
+        fails += [f"trainer: kernel {k} not launched in step {i} ({c['phase']})"
+                  for k in need if c["launches"][k] <= 0]
+    phases = [c["phase"] for c in recorder.calls]
+    if phases != ["prepare"] * spe + ["full"] * (2 * spe):
+        fails.append(f"trainer: step phases {phases}")
+    r = res["resume"]
+    if not (r["start_epoch"] == 3 and r["count_saved"] == 2 * spe
+            == r["count_first_resumed_step"] and r["count_after"] == 3 * spe == r["step_after"]):
+        fails.append(f"trainer: the resume does not continue the count: {r}")
+    ply = read_ply(written[val_ply])
+    sem, ins = ply["pred_sem"].astype(np.int64), ply["pred_ins"].astype(np.int64)
+    res["forward"] = dict(rows=len(sem), points=val_points, classes=np.unique(sem).tolist(),
+                          instances=int(len(np.unique(ins[ins >= 0]))))
+    if len(sem) != val_points or len(ins) != val_points:
+        fails.append(f"forward: {len(sem)} rows for {val_points} points")
+    if sem.min() < 0 or sem.max() >= resumed.pcfg.num_classes or ins.min() < -1:
+        fails.append(f"forward: labels out of range {res['forward']}")
+    log("trainer summary", json.dumps({k: v for k, v in res.items() if k not in ("epochs",
+                                                                               "steps")}))
+    with open(os.path.join(OUT_DIR, "trainer.json"), "w") as fh:
+        json.dump(res, fh, indent=1)
+    return launches, res, fails
+
+
 def main() -> int:
     import torch
 
@@ -1166,7 +1344,10 @@ def main() -> int:
         fails += f
         tile_rows, f = eval_tile_shapes(tmp)
         fails += f
-    log(f"scene bf16 done: {time.perf_counter() - t0:.1f} s")
+        log(f"scene bf16 done: {time.perf_counter() - t0:.1f} s")
+        trainer_launches, _, f = trainer_path(tmp)
+        fails += f
+    log(f"trainer path done: {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(OUT_DIR, "conv_shapes.json"), "w") as fh:
         json.dump({"train_step": conv_rows, "eval_tile": tile_rows}, fh, indent=0)
 
@@ -1185,9 +1366,11 @@ def main() -> int:
         k = ks[key]
         # counts of both main paths' counted runs; A's dX launches are its own
         # backward role of the same kernel
-        by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key]}
+        by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
+                   "trainer": trainer_launches[key]}
         if key == "A":
             by_path["train_steps_dx"] = train_launches["A_dx"]
+            by_path["trainer_dx"] = trainer_launches["A_dx"]
         if key in scene_launches:
             by_path["scene_eval"] = scene_launches[key]
         entries.append(dict(
@@ -1206,7 +1389,7 @@ def main() -> int:
     for key, part in (("B_keys", "keys"), ("B_blocks", "blocks"), ("B_cands", "cands")):
         k, rec = ks[key], b_rec["tables"][part]
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
-                   "scene_eval": scene_launches[key]}
+                   "scene_eval": scene_launches[key], "trainer": trainer_launches[key]}
         entries.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,

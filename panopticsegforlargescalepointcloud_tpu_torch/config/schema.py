@@ -3,9 +3,8 @@
 
 Counterpart of the JAX package's ``config/schema.py``
 (``dataset_spec_from_cfg``, ``panoptic_config_from_yaml``,
-``training_config_from_yaml``). Of the training fields, the ones the train
-step uses are ported (learning rate, optimizer, scheduler, weight decay,
-gradient clip) and the BN momentum schedule's, which the trainer reads.
+``training_config_from_yaml``), with the training fields the train step
+and the trainer read.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ def dataset_spec_from_cfg(data_cfg: Dict[str, Any]) -> DatasetSpec:
 
 @dataclasses.dataclass
 class TrainingConfig:
+    epochs: int = 150
     batch_size: int = 4
     samples_per_epoch: int = 3000
     lr: float = 1e-3
@@ -31,11 +31,24 @@ class TrainingConfig:
     scheduler_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
     optimizer: str = "Adam"
     weight_decay: float = 0.0
+    grad_accum: int = 1  # mini-batches per optimizer update (optax MultiSteps)
+    use_class_weights: bool = False  # sqrt-inverse-frequency weighted semantic NLL
     grad_clip: Optional[float] = None  # <= 0 or None: no clipping
+    eval_frequency: int = 1
     bn_momentum: float = 0.1
     bn_decay: float = 0.5  # step-decay policy of the BN momentum
     bn_decay_every: int = 20
     bn_clip: float = 0.01
+    checkpoint_dir: str = ""
+    seed: int = 2022
+    # data-parallel device count: 1 = one device, 0 = all local devices
+    # (one here: the port trains on one device)
+    num_devices: int = 1
+    # validate on the whole val split by deterministic grid tiling; False =
+    # quick eval on random val-style tiles
+    full_val: bool = True
+    # input-pipeline threads (data/prefetch.py); 0 = synchronous sampling
+    num_workers: int = 2
 
     @property
     def steps_per_epoch(self) -> int:
@@ -54,6 +67,7 @@ def training_config_from_yaml(cfg: Dict[str, Any]) -> TrainingConfig:
     bn = t.get("bn_scheduler", {}).get("params", {})
     gc = t.get("grad_clip", None)
     return TrainingConfig(
+        epochs=int(t.get("epochs", 150)),
         batch_size=int(t.get("batch_size", 4)),
         samples_per_epoch=int(t.get("samples_per_epoch", 3000)),
         lr=float(optim.get("base_lr", t.get("lr", 1e-3))),
@@ -61,11 +75,19 @@ def training_config_from_yaml(cfg: Dict[str, Any]) -> TrainingConfig:
         scheduler_params=dict(lr_s.get("params", {}) or {}),
         optimizer=str(optim.get("class", "Adam")),
         weight_decay=float(optim.get("weight_decay", 0.0)),
+        grad_accum=int(t.get("grad_accum", 1)),
+        use_class_weights=bool(t.get("use_class_weights", False)),
         grad_clip=None if gc is None else float(gc),
+        eval_frequency=int(t.get("eval_frequency", 1)),
         bn_momentum=float(bn.get("bn_momentum", 0.1)),
         bn_decay=float(bn.get("bn_decay", 0.5)),
         bn_decay_every=int(bn.get("decay_step", 20)),
         bn_clip=float(bn.get("bn_clip", 0.01)),
+        checkpoint_dir=str(t.get("checkpoint_dir", "")),
+        seed=int(t.get("seed", 2022)),
+        num_devices=int(t.get("num_devices", 1)),
+        full_val=bool(t.get("full_val", True)),
+        num_workers=int(t.get("num_workers", 2)),
     )
 
 

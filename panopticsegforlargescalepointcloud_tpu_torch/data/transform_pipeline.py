@@ -1,12 +1,20 @@
-"""Config-driven transform pipeline (name -> factory registry), test side.
+"""Config-driven transform pipeline (name -> factory registry).
 
 Counterpart of the JAX package's ``data/transform_pipeline.py``: each yaml
 entry ``{transform: Name, params: {...}}`` maps to a host-side numpy
-transform over a :class:`TileState`. The port has the *finalize*
-transforms, the ones a test tile runs after ``set_extra_labels``
-(XYZRelaFeature, XYZFeature, AddFeatsByKeys, Center, GridSampling3D,
-ShiftVoxels). The train-time geometric augmentations come with the trainer;
-until then :func:`build_pipeline` raises for them by name.
+transform over a :class:`TileState`. A pipeline runs in two phases around
+``set_extra_labels``, which needs the *augmented* positions for its
+bbox-centre vote offsets:
+
+* **geometric** transforms move positions and may subset points
+  (RandomNoise/Rotate/Scale/Symmetry, ElasticDistortion, RandomDropout,
+  Sphere/CubeCrop, DensityFilter); a subset applies to every per-point
+  array;
+* **finalize** transforms build features and voxelize (XYZRelaFeature,
+  XYZFeature, AddFeatsByKeys, Center, GridSampling3D, ShiftVoxels).
+
+``DEFAULT_TRAIN_TRANSFORMS`` and ``DEFAULT_TEST_TRANSFORMS`` are the paper
+stacks, used where the data yaml carries no list.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import transforms as T
 from .voxelize import grid_sample
 
 
@@ -30,21 +39,139 @@ class TileState:
     coords: Optional[np.ndarray] = None
     train: bool = True
 
+    def subset(self, keep) -> None:
+        self.pos = self.pos[keep]
+        self.attrs = {k: v[keep] for k, v in self.attrs.items()}
+        self.named_feats = {k: v[keep] for k, v in self.named_feats.items()}
+        if self.feats is not None:
+            self.feats = self.feats[keep]
+
 
 TransformFn = Callable[[TileState, np.random.Generator], None]
 
 _REGISTRY: Dict[str, Callable[..., TransformFn]] = {}
-# the JAX package's geometric (train-time) transforms, not ported yet
-_TRAIN_ONLY = ("RandomNoise", "RandomRotate", "RandomScaleAnisotropic", "RandomSymmetry",
-               "ElasticDistortion", "RandomDropout", "SphereCrop", "CubeCrop", "DensityFilter")
+# names whose transforms run before set_extra_labels (position/subset ops)
+GEOMETRIC = set()
 
 
-def register(name: str):
+def register(name: str, geometric: bool = False):
     def deco(factory):
         _REGISTRY[name] = factory
+        if geometric:
+            GEOMETRIC.add(name)
         return factory
 
     return deco
+
+
+# --------------------------- geometric phase ---------------------------
+
+
+@register("RandomNoise", geometric=True)
+def _noise(sigma: float = 0.01, clip: float = 0.05) -> TransformFn:
+    def fn(st, rng):
+        st.pos = T.random_noise(st.pos, rng, sigma=sigma, clip=clip)
+
+    return fn
+
+
+@register("RandomRotate", geometric=True)
+def _rotate(degrees: float = 180.0, axis: int = 2) -> TransformFn:
+    """Rotation about one axis by a uniform angle in [-degrees, degrees]."""
+
+    def fn(st, rng):
+        a = np.deg2rad(rng.uniform(-degrees, degrees))
+        c, s = np.cos(a), np.sin(a)
+        i, j = [(1, 2), (0, 2), (0, 1)][axis]
+        rot = np.eye(3, dtype=st.pos.dtype)
+        rot[i, i] = c
+        rot[i, j] = -s
+        rot[j, i] = s
+        rot[j, j] = c
+        st.pos = st.pos @ rot.T
+
+    return fn
+
+
+@register("RandomScaleAnisotropic", geometric=True)
+def _scale(scales: Sequence[float] = (0.9, 1.1)) -> TransformFn:
+    def fn(st, rng):
+        st.pos = T.random_scale_anisotropic(st.pos, rng, scales=tuple(scales))
+
+    return fn
+
+
+@register("RandomSymmetry", geometric=True)
+def _symmetry(axis: Sequence[bool] = (True, False, False)) -> TransformFn:
+    def fn(st, rng):
+        st.pos = T.random_symmetry(st.pos, rng, axis=tuple(axis))
+
+    return fn
+
+
+@register("ElasticDistortion", geometric=True)
+def _elastic(
+    granularity: Sequence[float] = (0.2, 0.8),
+    magnitude: Sequence[float] = (0.4, 1.6),
+    apply_distorsion: bool = True,
+    apply_prob: float = 0.95,
+) -> TransformFn:
+    def fn(st, rng):
+        if not apply_distorsion:
+            return
+        st.pos = T.elastic_distortion(
+            st.pos, rng, granularity=tuple(granularity),
+            magnitude=tuple(magnitude), apply_prob=apply_prob,
+        )
+
+    return fn
+
+
+@register("RandomDropout", geometric=True)
+def _dropout(
+    dropout_ratio: float = 0.2, dropout_application_ratio: float = 0.5
+) -> TransformFn:
+    def fn(st, rng):
+        keep = T.random_dropout(
+            len(st.pos), rng, dropout_ratio=dropout_ratio,
+            apply_prob=dropout_application_ratio,
+        )
+        if len(keep) != len(st.pos):
+            st.subset(keep)
+
+    return fn
+
+
+@register("SphereCrop", geometric=True)
+def _sphere_crop(radius: float = 50.0) -> TransformFn:
+    def fn(st, rng):
+        st.subset(T.sphere_crop(st.pos, rng, radius=radius))
+
+    return fn
+
+
+@register("CubeCrop", geometric=True)
+def _cube_crop(
+    c: float = 1.0, rot_x: float = 180.0, rot_y: float = 180.0,
+    rot_z: float = 180.0,
+) -> TransformFn:
+    def fn(st, rng):
+        st.subset(T.cube_crop(st.pos, rng, c=c,
+                              rot_degrees=(rot_x, rot_y, rot_z)))
+
+    return fn
+
+
+@register("DensityFilter", geometric=True)
+def _density(radius_nn: float = 0.16, min_num: int = 16) -> TransformFn:
+    def fn(st, rng):
+        st.subset(T.density_filter(st.pos, radius=radius_nn,
+                                   min_density=min_num))
+
+    return fn
+
+
+# --------------------------- finalize phase ---------------------------
 
 
 @register("XYZRelaFeature")
@@ -134,14 +261,22 @@ def _shift_voxels(apply_shift: bool = True) -> TransformFn:
     return fn
 
 
+# --------------------------- pipeline assembly ---------------------------
+
+
 @dataclass
 class Pipeline:
-    """The transforms of a config list, in order."""
+    """Geometric + finalize transform lists built from a config list."""
 
-    transforms: List[TransformFn]
+    geometric: List[TransformFn]
+    finalize: List[TransformFn]
 
-    def run(self, st: TileState, rng) -> None:
-        for fn in self.transforms:
+    def run_geometric(self, st: TileState, rng) -> None:
+        for fn in self.geometric:
+            fn(st, rng)
+
+    def run_finalize(self, st: TileState, rng) -> None:
+        for fn in self.finalize:
             fn(st, rng)
 
 
@@ -155,15 +290,12 @@ def build_pipeline(entries: Optional[Sequence[dict]], grid_size: float) -> Pipel
     ``grid_size`` substitutes for unresolved ``${data.first_subsampling}``
     interpolations and is the default GridSampling3D size.
     """
-    fns: List[TransformFn] = []
+    geo: List[TransformFn] = []
+    fin: List[TransformFn] = []
     for entry in entries or []:
         name = _entry_name(entry)
         if name is None:
             raise ValueError(f"transform entry without a name: {entry!r}")
-        if name in _TRAIN_ONLY:
-            raise NotImplementedError(
-                f"transform {name!r} is a train-time augmentation the PyTorch port does "
-                f"not have yet (ROADMAP.md, slice 4)")
         if name not in _REGISTRY:
             raise ValueError(
                 f"unknown transform {name!r}; known: {sorted(_REGISTRY)}"
@@ -173,12 +305,17 @@ def build_pipeline(entries: Optional[Sequence[dict]], grid_size: float) -> Pipel
             params.setdefault("size", grid_size)
             if isinstance(params["size"], str):  # unresolved interpolation
                 params["size"] = grid_size
-        fns.append(_REGISTRY[name](**params))
-    return Pipeline(fns)
+        fn = _REGISTRY[name](**params)
+        (geo if name in GEOMETRIC else fin).append(fn)
+    return Pipeline(geo, fin)
 
 
-# the paper's test stack (the JAX package's DEFAULT_TEST_TRANSFORMS)
-DEFAULT_TEST_TRANSFORMS: List[dict] = [
+DEFAULT_TRAIN_TRANSFORMS: List[dict] = [
+    {"transform": "RandomNoise", "params": {"sigma": 0.01}},
+    {"transform": "RandomRotate", "params": {"degrees": 180, "axis": 2}},
+    {"transform": "RandomScaleAnisotropic", "params": {"scales": [0.9, 1.1]}},
+    {"transform": "RandomSymmetry",
+     "params": {"axis": [True, False, False]}},
     {"transform": "XYZRelaFeature",
      "params": {"add_x": True, "add_y": True, "add_z": True}},
     {"transform": "XYZFeature",
@@ -190,4 +327,10 @@ DEFAULT_TEST_TRANSFORMS: List[dict] = [
     {"transform": "Center"},
     {"transform": "GridSampling3D",
      "params": {"quantize_coords": True, "mode": "last"}},
+    {"transform": "ShiftVoxels"},
+]
+
+DEFAULT_TEST_TRANSFORMS: List[dict] = [
+    e for e in DEFAULT_TRAIN_TRANSFORMS
+    if _entry_name(e) not in GEOMETRIC and _entry_name(e) != "ShiftVoxels"
 ]

@@ -87,6 +87,15 @@ class ModelCheckpoint:
         return self._data["run_config"]
 
     @property
+    def weight_names(self) -> List[str]:
+        return list(self._data["models"])
+
+    @property
+    def stats(self) -> Dict[str, List[Dict[str, float]]]:
+        """Per stage, the metrics of each epoch saved so far."""
+        return self._data["stats"]
+
+    @property
     def best_metrics(self) -> Dict[str, float]:
         return self._data["best_metrics"]
 

@@ -113,40 +113,50 @@ class FullSceneEvaluator:
         th_merge: Optional[float] = None,
         voting_runs: int = 1,
     ) -> List[Dict[str, float]]:
+        """Predict every test file and write its report (and, with
+        ``ply_output``, its PLYs) into ``out_dir``; returns the reports."""
         os.makedirs(out_dir, exist_ok=True)
-        th = 0.1 if th_merge is None else th_merge
         self.last_overflow = {"cluster_overflow": 0, "scorer_overflow": 0}
         reports = []
         for fi in range(len(self.dataset.files)):
-            raw = self.dataset.raw_clouds[fi]
-            acc = SceneAccumulator(raw["pos"], self.pcfg.num_classes)
-            runs = max(int(voting_runs), 1)
-            for vote in range(runs):
-                # each voting run re-tiles with a shifted grid origin
-                with self._phase("tiling"):
-                    tiles = self.dataset.test_tiles(fi, grid_shift=vote / runs)
-                if vote == 0:
-                    log.info("file %d: %d tiles x %d votes", fi, len(tiles), runs)
-                g = self.group
-                for start in range(0, len(tiles), g):
-                    group = tiles[start:start + g]
-                    # the last group pads by repeating its final tile; padded
-                    # samples are computed but never accumulated
-                    padded = group + [group[-1]] * (g - len(group))
-                    with self._phase("collate"):
-                        vb = collate_tiles([t for t, _ in padded],
-                                           capacity=self.capacity * g, num_tiles=g)
-                    db, out = self._fwd(batch_arrays(vb))
-                    self._accumulate_dispatch(acc, db, out, [ids for _, ids in group], th)
-            with self._phase("finalise"):
-                sem, ins = acc.finalise(
-                    stuff_classes=self.pcfg.stuff_classes,
-                    distance_cutoff=1.0,
-                    min_instance_size=10,
-                )
+            sem, ins, acc = self.predict(fi, th_merge, voting_runs)
             with self._phase("report"):
-                reports.append(self._report(fi, raw, sem, ins, acc, out_dir, ply_output))
+                reports.append(self._report(fi, self.dataset.raw_clouds[fi], sem, ins, acc,
+                                            out_dir, ply_output))
         return reports
+
+    def predict(self, fi: int, th_merge: Optional[float] = None, voting_runs: int = 1):
+        """(semantic, instance, accumulator) of test file ``fi``: per-point
+        labels of its raw cloud after block merging (threshold ``th_merge``,
+        0.1 by default) and finalise."""
+        th = 0.1 if th_merge is None else th_merge
+        raw = self.dataset.raw_clouds[fi]
+        acc = SceneAccumulator(raw["pos"], self.pcfg.num_classes)
+        runs = max(int(voting_runs), 1)
+        for vote in range(runs):
+            # each voting run re-tiles with a shifted grid origin
+            with self._phase("tiling"):
+                tiles = self.dataset.test_tiles(fi, grid_shift=vote / runs)
+            if vote == 0:
+                log.info("file %d: %d tiles x %d votes", fi, len(tiles), runs)
+            g = self.group
+            for start in range(0, len(tiles), g):
+                group = tiles[start:start + g]
+                # the last group pads by repeating its final tile; padded
+                # samples are computed but never accumulated
+                padded = group + [group[-1]] * (g - len(group))
+                with self._phase("collate"):
+                    vb = collate_tiles([t for t, _ in padded],
+                                       capacity=self.capacity * g, num_tiles=g)
+                db, out = self._fwd(batch_arrays(vb))
+                self._accumulate_dispatch(acc, db, out, [ids for _, ids in group], th)
+        with self._phase("finalise"):
+            sem, ins = acc.finalise(
+                stuff_classes=self.pcfg.stuff_classes,
+                distance_cutoff=1.0,
+                min_instance_size=10,
+            )
+        return sem, ins, acc
 
     def _report(self, fi, raw, sem, ins, acc, out_dir, ply_output):
         gt_sem = raw["y"]

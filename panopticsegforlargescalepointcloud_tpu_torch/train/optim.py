@@ -1,16 +1,23 @@
 """Learning-rate schedules and optimizers (counterpart of the JAX package's
 ``train/optim.py``, whose optax transformations fix the semantics).
 
-A schedule is a plain function of the optimizer step count (per-epoch
+A schedule is a plain function of the optimizer update count (per-epoch
 semantics expressed in steps through ``steps_per_epoch``, staircased as
 torch's epoch-wise ``scheduler.step()``). :func:`optimizer_step` sets every
-param group's lr from it before ``optimizer.step()``. The count lives in the
-param groups (``"count"``), as optax keeps it in the optimizer state: the
-prepare and full train steps share it, and ``optimizer.state_dict()`` saves
-it.
+param group's lr from it before ``optimizer.step()``. The optimizer's
+counters live in its param groups, as optax keeps them in the optimizer
+state, so the prepare and full train steps share them and
+``optimizer.state_dict()`` saves them:
 
-Not ported yet: ReduceLROnPlateau (the trainer's plateau control) and
-gradient accumulation (optax ``MultiSteps``).
+* ``count``: updates made, the schedule's argument;
+* ``calls``: mini-batches taken (the JAX package's ``TrainState.step``);
+* ``mini_step`` and ``acc_grads``: the gradient-accumulation window
+  (optax ``MultiSteps``: the running mean of k mini-batch gradients, one
+  update every k-th call);
+* ``plateau_scale``: the ReduceLROnPlateau factor on the lr, which the
+  trainer sets from :class:`PlateauController` (optax:
+  ``inject_hyperparams(scale)`` chained after the optimizer, equal to
+  scaling the lr for Adam, AdamW, SGD and RMSprop).
 """
 
 from __future__ import annotations
@@ -74,8 +81,62 @@ def make_lr_schedule(name: str, params: Dict[str, Any], base_lr: float,
 
         return cyclic
     if "plateau" in n:
-        raise NotImplementedError("ReduceLROnPlateau is not ported yet")
+        # metric-driven: the schedule is the base lr; the trainer applies the
+        # plateau scale (PlateauController, apply_plateau_scale)
+        return lambda step: base_lr
     raise ValueError(f"unknown lr scheduler class {name!r}")
+
+
+def needs_plateau(name: str) -> bool:
+    return "plateau" in (name or "").lower()
+
+
+class PlateauController:
+    """Host-side ReduceLROnPlateau (torch semantics: factor, patience and
+    threshold on a monitored metric; a copy of the JAX package's). The
+    trainer calls :meth:`step` with the validation loss after each
+    validation and applies the returned scale with
+    :func:`apply_plateau_scale`."""
+
+    def __init__(self, params: Dict[str, Any] | None, base_lr: float = 1.0):
+        p = params or {}
+        self.mode = str(p.get("mode", "min"))
+        self.factor = float(p.get("factor", 0.1))
+        self.patience = int(p.get("patience", 10))
+        self.threshold = float(p.get("threshold", 1e-4))
+        # torch's min_lr is an absolute lr floor; the controller works in
+        # multiplicative scale, so the scale's floor is min_lr / base_lr
+        min_lr = float(p.get("min_lr", 0.0))
+        self.min_scale = min_lr / base_lr if base_lr > 0 else 0.0
+        self.best: float | None = None
+        self.bad = 0
+        self.scale = 1.0
+
+    def _improved(self, metric: float) -> bool:
+        if self.best is None:
+            return True
+        if self.mode == "max":
+            return metric > self.best * (1.0 + self.threshold)
+        return metric < self.best * (1.0 - self.threshold)
+
+    def step(self, metric: float) -> float:
+        """Update with the latest monitored metric; returns the current
+        cumulative lr scale."""
+        if self._improved(metric):
+            self.best = metric
+            self.bad = 0
+        else:
+            self.bad += 1
+            if self.bad > self.patience:
+                self.scale = max(self.scale * self.factor, self.min_scale)
+                self.bad = 0
+        return self.scale
+
+
+def apply_plateau_scale(optimizer: torch.optim.Optimizer, scale: float) -> None:
+    """The lr of every later update is ``schedule(count) * scale``."""
+    for group in optimizer.param_groups:
+        group["plateau_scale"] = float(scale)
 
 
 class RMSprop(torch.optim.Optimizer):
@@ -117,10 +178,51 @@ def make_optimizer(optimizer: str, params: Iterable[torch.nn.Parameter],
     raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
-def optimizer_step(optimizer: torch.optim.Optimizer, schedule: Schedule) -> None:
-    """One update at ``lr = schedule(count)``, then ``count += 1``."""
-    for group in optimizer.param_groups:
-        group["lr"] = float(schedule(group.setdefault("count", 0)))
+@torch.no_grad()
+def optimizer_step(optimizer: torch.optim.Optimizer, schedule: Schedule,
+                   grad_accum: int = 1) -> bool:
+    """Take one mini-batch's gradients (``p.grad``). With ``grad_accum`` k =
+    1, one update at ``lr = schedule(count) * plateau_scale``, then
+    ``count += 1``. With k > 1, as optax ``MultiSteps``: the gradient joins
+    the running mean ``acc += (g - acc) / (mini_step + 1)``, and every k-th
+    call updates with that mean and starts a new window. Returns whether
+    the weights were updated."""
+    groups = optimizer.param_groups
+    for group in groups:
+        group.setdefault("count", 0)
+        group["calls"] = group.get("calls", 0) + 1
+    k = max(int(grad_accum), 1)
+    if k > 1:
+        mini = groups[0].get("mini_step", 0)
+        for group in groups:
+            accs = group.get("acc_grads") or [None] * len(group["params"])
+            for i, p in enumerate(group["params"]):
+                acc = torch.zeros_like(p) if mini == 0 else accs[i].to(p.device)
+                accs[i] = acc + (p.grad - acc) / (mini + 1)
+            group["acc_grads"] = accs
+        if mini < k - 1:
+            for group in groups:
+                group["mini_step"] = mini + 1
+            return False
+        for group in groups:
+            for p, acc in zip(group["params"], group["acc_grads"]):
+                p.grad = acc
+            group["acc_grads"] = None
+            group["mini_step"] = 0
+    for group in groups:
+        group["lr"] = float(schedule(group["count"])) * group.get("plateau_scale", 1.0)
     optimizer.step()
-    for group in optimizer.param_groups:
+    for group in groups:
         group["count"] += 1
+    return True
+
+
+def build_from_config(tcfg, steps_per_epoch: int, params: Iterable[torch.nn.Parameter]):
+    """(optimizer, schedule, plateau) from a :class:`TrainingConfig`.
+    ``plateau`` is a :class:`PlateauController` for ReduceLROnPlateau
+    configs (the trainer feeds it the monitored validation loss), else
+    None. Gradient accumulation is the train step's ``grad_accum``."""
+    schedule = make_lr_schedule(tcfg.scheduler, tcfg.scheduler_params, tcfg.lr, steps_per_epoch)
+    plateau = (PlateauController(tcfg.scheduler_params, base_lr=tcfg.lr)
+               if needs_plateau(tcfg.scheduler) else None)
+    return make_optimizer(tcfg.optimizer, params, tcfg.weight_decay), schedule, plateau

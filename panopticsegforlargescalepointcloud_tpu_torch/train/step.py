@@ -132,11 +132,12 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
 
 
 def make_eval_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, device=None,
-                      timer: Optional[Callable] = None):
+                      timer: Optional[Callable] = None, with_clustering: bool = True):
     """Inference: ``fwd(arrays) -> (DeviceBatch, PanopticOutput)``,
     with ``arrays`` in the JAX package's ``batch_arrays`` order. Runs on
     ``cuda`` unless ``device="cpu"``; moves the model there and runs it in
-    eval mode."""
+    eval mode. ``with_clustering=False`` stops after the heads (the
+    trainer's validation before the full phase)."""
     dev = resolve_device(device)
     model.to(dev)
 
@@ -146,7 +147,7 @@ def make_eval_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, device=No
         with _phase(timer, "hierarchy"):
             db = canonicalize(*arrays, device=dev)
             hier = build_hierarchy(db.grid, cfg.num_down, device=dev)
-        return db, panoptic_forward(cfg, model, db, hier, timer=timer)
+        return db, panoptic_forward(cfg, model, db, hier, with_clustering, timer=timer)
 
     return fwd
 
@@ -194,8 +195,11 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
 @dataclasses.dataclass
 class TrainState:
     """The model (weights and BN running statistics), its optimizer and the
-    torch-convention BN momentum the next step uses. The step count is the
-    optimizer's schedule count (:func:`.optim.optimizer_step`)."""
+    torch-convention BN momentum the next step uses. ``step`` counts the
+    mini-batches taken, as the JAX package's ``TrainState.step``; the
+    schedule's count of updates is the optimizer's ``count``
+    (:func:`.optim.optimizer_step`); the two differ under gradient
+    accumulation."""
 
     model: PointGroup3HeadsNet
     optimizer: torch.optim.Optimizer
@@ -203,7 +207,7 @@ class TrainState:
 
     @property
     def step(self) -> int:
-        return int(self.optimizer.param_groups[0].get("count", 0))
+        return int(self.optimizer.param_groups[0].get("calls", 0))
 
 
 def init_state(cfg: PanopticConfig, generator: torch.Generator, optimizer: str = "Adam",
@@ -219,11 +223,14 @@ def init_state(cfg: PanopticConfig, generator: torch.Generator, optimizer: str =
 def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
                     optimizer: torch.optim.Optimizer, schedule: Schedule,
                     with_clustering: bool, grad_clip_value: float | None = None,
-                    class_weights=None, device=None, timer: Optional[Callable] = None):
+                    class_weights=None, device=None, timer: Optional[Callable] = None,
+                    grad_accum: int = 1):
     """``step(arrays, bn_momentum) -> metrics``: one forward in training
-    mode, the losses, the backward and one optimizer update at
-    ``schedule(count)``. The weights, the optimizer state and the BN running
-    statistics are updated in place. ``metrics`` holds every loss term,
+    mode, the losses, the backward and :func:`.optim.optimizer_step`: one
+    optimizer update at ``schedule(count)``, or with ``grad_accum`` k > 1 one
+    update every k-th call with the mean of the k clipped gradients. The
+    weights, the optimizer state and the BN running statistics (these on
+    every call) are updated in place. ``metrics`` holds every loss term,
     ``loss`` and ``hier_overflow`` as 0-dim tensors on the device. Runs on
     ``cuda`` unless ``device="cpu"``; moves the model there.
     ``grad_clip_value`` clips each gradient element to [-v, v].
@@ -257,7 +264,7 @@ def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
                     p.grad = torch.zeros_like(p)
             if grad_clip_value is not None:
                 torch.nn.utils.clip_grad_value_(params, grad_clip_value)
-            optimizer_step(optimizer, schedule)
+            optimizer_step(optimizer, schedule, grad_accum)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["hier_overflow"] = hier.overflow.sum()
         return metrics

@@ -134,8 +134,12 @@ def test_processed_cache_reloads_the_same_cloud(forest, tmp_path):
 
 @pytest.mark.parametrize("name", ["RandomNoise", "RandomRotate", "ElasticDistortion"])
 def test_train_time_transforms_raise_by_name(name):
-    with pytest.raises(NotImplementedError, match=name):
-        build_pipeline([{"transform": name}], 0.2)
+    # the train-time augmentations are ported: each builds into the
+    # pipeline's geometric phase, and a name the registry lacks raises by name
+    pipe = build_pipeline([{"transform": name}], 0.2)
+    assert len(pipe.geometric) == 1 and not pipe.finalize
+    with pytest.raises(ValueError, match=f"unknown transform '{name}X'"):
+        build_pipeline([{"transform": name + "X"}], 0.2)
 
 
 def test_unknown_transform_raises():

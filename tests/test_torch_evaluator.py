@@ -2,8 +2,12 @@
 device IoU + NMS, block merging, finalise, PQ report) against the JAX
 package's on a small synthetic forest (4 trees, 14 m, 4,096-row tiles),
 tiny plan, weights carried over with ``params_from_flax``; the port's
-grouped dispatch (2 tiles per forward) against its sequential path; and the
-port's eval CLI on the CPU from a port checkpoint.
+grouped dispatch (2 tiles per forward) against its sequential path; voting
+runs 2 and 3 (re-tilings with shifted grid origins) at 1 and 2 tiles per
+dispatch against the JAX evaluator's voting runs (at 1 tile per dispatch:
+on this scene the budgets do not bind, so grouping changes no label, as the
+grouped-dispatch test shows); and the port's eval CLI on the CPU from a
+port checkpoint.
 
 The JAX side runs as its own tests run it: f32, ``use_winconv="off"``,
 ``rg_dense="on"`` (dense pull in Pallas interpret mode), and the numpy
@@ -87,8 +91,8 @@ def scene(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(native, "available", lambda: False)
         jds = JDataset(J_TREEINS, [ply], grid_size=0.2, radius=7.0, keep_raw=True)
-        jrep = JEvaluator(jcfg, jmodel, params, stats, jds, capacity=CAPACITY).run(
-            out_dir=str(tmp / "jax"))
+        jev = JEvaluator(jcfg, jmodel, params, stats, jds, capacity=CAPACITY)
+        jrep = jev.run(out_dir=str(tmp / "jax"))
 
     cfg = PanopticConfig(**CFG)
     model = PointGroup3HeadsNet(cfg)
@@ -99,7 +103,8 @@ def scene(tmp_path_factory):
         ev = FullSceneEvaluator(cfg, model, ds, capacity=CAPACITY, tiles_per_dispatch=g,
                                 device="cpu")
         runs[g] = (ev.run(out_dir=str(tmp / f"port_g{g}")), tmp / f"port_g{g}")
-    return dict(tmp=tmp, ply=ply, cfg=cfg, model=model, jax=(jrep, tmp / "jax"), port=runs)
+    return dict(tmp=tmp, ply=ply, cfg=cfg, model=model, jax=(jrep, tmp / "jax"), port=runs,
+                jcfg=jcfg, jmodel=jmodel, params=params, stats=stats, jev=jev, jds=jds)
 
 
 def _labels(out_dir, kind):
@@ -134,6 +139,45 @@ def test_reports_match(scene, other):
     assert set(got[0]) == set(want[0])
     for k, v in want[0].items():
         assert got[0][k] == pytest.approx(v, abs=1e-6), k
+
+
+@pytest.fixture(scope="module")
+def votes(scene):
+    """Labels and reports of voting runs 2 and 3: the JAX evaluator's (its
+    compiled forward reused) and the port's at g = 1 and 2."""
+    tmp, out = scene["tmp"], {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "available", lambda: False)
+        for runs in (2, 3):
+            d = tmp / f"jax_v{runs}"
+            out["jax", runs] = (scene["jev"].run(out_dir=str(d), voting_runs=runs), d)
+    for g in (1, 2):
+        ds = PanopticFileDataset(TREEINS_SPEC, [scene["ply"]], grid_size=0.2, radius=7.0,
+                                 keep_raw=True)
+        ev = FullSceneEvaluator(scene["cfg"], scene["model"], ds, capacity=CAPACITY,
+                                tiles_per_dispatch=g, device="cpu")
+        for runs in (2, 3):
+            d = tmp / f"port_v{runs}_g{g}"
+            out["port", g, runs] = (ev.run(out_dir=str(d), voting_runs=runs), d)
+    return out
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("runs", [2, 3])
+def test_voting_runs_match_jax(votes, g, runs):
+    (jrep, jdir), (prep, pdir) = votes["jax", runs], votes["port", g, runs]
+    for kind in ("semantic", "instance"):
+        np.testing.assert_array_equal(_labels(pdir, kind), _labels(jdir, kind), err_msg=kind)
+    assert len(prep) == len(jrep) == 1 and set(prep[0]) == set(jrep[0])
+    for k, v in jrep[0].items():
+        assert prep[0][k] == pytest.approx(v, abs=1e-6), k
+
+
+def test_voting_runs_change_the_labels(votes, scene):
+    """The re-tilings vote: three runs do not label every point as one run."""
+    one, three = scene["port"][1][1], votes["port", 1, 3][1]
+    assert any(not np.array_equal(_labels(three, kind), _labels(one, kind))
+               for kind in ("semantic", "instance"))
 
 
 def test_evaluation_report_text_matches_jax(scene):

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX, flax, optax nor the
 JAX package; its entry points (the eval forward's, the train step's, the
-full-scene evaluator's and the eval CLI's) default to the GPU and raise
-without one; its kernel wrappers, the conv's backward and the conv probe's
+full-scene evaluator's and the eval CLI's here; the trainer's, the train and
+forward CLIs' and the learning run's in their own test files) default to the
+GPU and raise without one; its kernel wrappers, the conv's backward and the conv probe's
 parts included, run their plain versions on CPU tensors without counting a
 launch."""
 
@@ -61,6 +62,16 @@ def test_package_import_leaves_jax_unloaded():
         "import panopticsegforlargescalepointcloud_tpu_torch.eval\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.cluster.nms\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.bench_conv_parts\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.train.trainer\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.cli.train\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.cli.forward\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.smoke_learning\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.data.prefetch\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.data.transforms\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.eval.instance_metrics\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.eval.visualizer\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.utils.debugging\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.utils.wandb_utils\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -72,6 +83,7 @@ def test_package_import_leaves_jax_unloaded():
     assert "panopticsegforlargescalepointcloud_tpu_torch.train.optim" in mods
     assert "panopticsegforlargescalepointcloud_tpu_torch.ops.conv_parts" in mods
     assert "panopticsegforlargescalepointcloud_tpu_torch.data.datasets" in mods
+    assert "panopticsegforlargescalepointcloud_tpu_torch.train.trainer" in mods
 
 
 def _tiny_arrays():

@@ -47,8 +47,11 @@ def test_schedule_matches_optax(name, params):
 
 
 def test_plateau_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        make_lr_schedule("ReduceLROnPlateau", {}, 1e-3, 10)
+    # ReduceLROnPlateau is ported: its schedule is the base lr (the trainer
+    # applies the plateau scale), as the JAX package's
+    want = j_schedule("ReduceLROnPlateau", {}, 1e-3, 10)
+    got = make_lr_schedule("ReduceLROnPlateau", {}, 1e-3, 10)
+    assert [got(s) for s in range(0, 50, 7)] == [float(want(s)) for s in range(0, 50, 7)]
 
 
 @pytest.mark.parametrize("name,wd", [("Adam", 0.0), ("AdamW", 1e-2), ("SGD", 0.0),

@@ -69,7 +69,25 @@
    step seconds per step from the trainer's stage timers, the losses, the
    validation metrics and the peak memory; the whole record goes to
    ``chiprun_out/trainer.json``.
-8. Prints one ``{"kernels": [...]}`` line and, last, the
+8. Drives the eighth path, the paper's Settings I, II, III and V
+   (``flagship.SETTINGS``: ``area4_ablation_19`` / ``_14`` / ``_15`` /
+   ``_3heads_6``) at the flagship's width and data (paper plan, in_feat 16,
+   131,072 rows of ``build_inputs``, 4 samples, bf16, seeded weights): per
+   setting 3 eval forwards (median ms, phases) and 3 prepare + 2 full train
+   steps (median ms), the launches of A, dX, D, B, B's tables and C per
+   forward and per step, and peak memory ("setting <n>" lines); the f32
+   forward with the kernels against the plain versions for Settings I and V
+   (``main_path_f32``'s tolerances); C at Setting I's own operands (the
+   embedding's E = 5 columns; counts and iterations exact against the plain
+   loop); B at both region-growing sources (positions and votes) of
+   Settings III and V against the all-pairs spec; the embed strategies 14
+   and 2 (HDBSCAN; one forward each, the HDBSCAN phase's ms, the card's
+   HDBSCAN against the host's); Setting I's scene through the eval CLI
+   (``models=panoptic/area4_ablation_19``): a quarter of the forest in f32,
+   kernels against plain versions, then the whole forest in bf16 at g = 1
+   and 2 ("setting I scene" lines). "settings summary" gathers them.
+9. Prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
+   kernel's launches per path, ``settings`` among them) and, last, the
    ``{"ok": true, "device": {...}}`` line. Every conv record goes to
    ``chiprun_out/conv_shapes.json``.
 
@@ -524,7 +542,19 @@ def f32_reference(seeds, svalid, x, pvalid, bandwidth: float, max_iter: int, got
 
 def phase_meanshift(bsz: int, s: int, np_: int, e: int, bandwidth: float, seed: int,
                     tag: str = "C", max_iter: int = 100):
-    """Kernel C against its plain versions on seeded blobs: the whole loop
+    """Kernel C against its plain versions on seeded blobs
+    (:func:`check_meanshift`)."""
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_cluster import blobs
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster.meanshift import _bin_seeds
+
+    x, pvalid = blobs(bsz, np_, e, seed)
+    seeds, svalid = _bin_seeds(x, pvalid, bandwidth, s)
+    return check_meanshift(seeds.contiguous(), svalid, x, pvalid, bandwidth, tag, max_iter)
+
+
+def check_meanshift(seeds, svalid, x, pvalid, bandwidth: float, tag: str = "C",
+                    max_iter: int = 100):
+    """Kernel C against its plain versions on these operands: the whole loop
     (``meanshift_converge`` against ``meanshift_converge_plain``: counts
     exact at every seed, iteration counts equal, seeds within 1e-5) and one
     update (``meanshift_update`` against ``shift_iter_plain`` and against
@@ -537,18 +567,15 @@ def phase_meanshift(bsz: int, s: int, np_: int, e: int, bandwidth: float, seed: 
     + 1) x Np pairs of 3E + 4 operations."""
     import torch
 
-    from panopticsegforlargescalepointcloud_tpu_torch.bench_cluster import blobs
     from panopticsegforlargescalepointcloud_tpu_torch.cluster.meanshift import (
-        _bin_seeds,
         meanshift_converge,
         meanshift_converge_plain,
         meanshift_update,
         shift_iter_plain,
     )
 
-    x, pvalid = blobs(bsz, np_, e, seed)
-    seeds, svalid = _bin_seeds(x, pvalid, bandwidth, s)
-    seeds = seeds.contiguous()
+    bsz, s, e = seeds.shape
+    np_ = x.shape[1]
     got, gcnt, giters = meanshift_converge(seeds, svalid, x, pvalid, bandwidth, max_iter)
     want, wcnt, witers = meanshift_converge_plain(seeds, svalid, x, pvalid, bandwidth,
                                                   max_iter)
@@ -578,7 +605,7 @@ def phase_meanshift(bsz: int, s: int, np_: int, e: int, bandwidth: float, seed: 
                f32_reference=f32_reference(seeds, svalid, x, pvalid, bandwidth, max_iter,
                                            (got, gcnt, giters)),
                iterations_max=int(giters.max()), iterations_mean=float(it.mean()),
-               valid_seeds=int(svalid.sum()),
+               valid_seeds=int(svalid.sum()), valid_points=int(pvalid.sum()),
                ms=cuda_ms(run, iters=10), device_ms=cuda_ms(run, iters=10, queued=True),
                plain_ms=cuda_ms(lambda: meanshift_converge_plain(
                    seeds, svalid, x, pvalid, bandwidth, max_iter), iters=2, warmup=1),
@@ -611,6 +638,13 @@ class PhaseTimer:
         self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
 
+def cluster_kernels(cfg):
+    """The kernels a forward with clustering of ``cfg`` launches besides A:
+    B and its tables where it grows regions, C where it runs mean shift."""
+    return ((["B", "B_keys", "B_blocks", "B_cands"] if cfg.rg_sources else [])
+            + (["C"] if cfg.use_meanshift else []))
+
+
 def check_output(cfg, db, out):
     import torch
 
@@ -618,9 +652,14 @@ def check_output(cfg, db, out):
     shapes = {
         "semantic_logits": (n, cfg.num_classes), "offset_logits": (n, 3),
         "embed_logits": (n, cfg.embed_dim), "backbone_feats": (n, cfg.in_feat),
-        "cluster_scores": (cfg.total_props,),
     }
     fails = []
+    if cfg.use_score_net:
+        shapes["cluster_scores"] = (cfg.total_props,)
+    elif out.cluster_scores is not None:
+        fails.append("scores from a model without a score net")
+    if not cfg.has_offset and bool(out.offset_logits.any()):
+        fails.append("offsets from a model without an offset head")
     for k, shp in shapes.items():
         v = getattr(out, k)
         if tuple(v.shape) != shp or not bool(torch.isfinite(v).all()):
@@ -631,7 +670,7 @@ def check_output(cfg, db, out):
     return fails
 
 
-def main_path_f32(cfg32, arrays, seed: int):
+def main_path_f32(cfg32, arrays, seed: int, tag: str = "main path f32 kernel vs plain"):
     """f32 forward with the kernels and with the plain versions on the card."""
     import torch
 
@@ -660,9 +699,10 @@ def main_path_f32(cfg32, arrays, seed: int):
     res["valid_proposals"] = int(k_out.proposals.prop_valid.sum())
     if same < 0.999:
         fails.append(f"f32 membership rows identical {same} < 0.999")
-    sc = (k_out.cluster_scores - p_out.cluster_scores).abs().max()
-    res["scores_max_abs_err"] = float(sc)
-    log("main path f32 kernel vs plain", json.dumps(res))
+    if k_out.cluster_scores is not None:
+        sc = (k_out.cluster_scores - p_out.cluster_scores).abs().max()
+        res["scores_max_abs_err"] = float(sc)
+    log(tag, json.dumps(res))
     return fails
 
 
@@ -684,7 +724,7 @@ def main_path_bf16(cfg, arrays, seed: int, repeats: int, hier_overflow):
     launches = read_counts()
     fails = check_output(cfg, db, out)
     fails += [f"kernel {n} not launched on the eval forward"
-              for n in ("A", "B", "B_keys", "B_blocks", "B_cands", "C") if launches[n] <= 0]
+              for n in ["A"] + cluster_kernels(cfg) if launches[n] <= 0]
     # the whole mean-shift loop is one launch of C (one mean_shift call)
     if launches["C"] > 2:
         fails.append(f"kernel C launched {launches['C']} times on the eval forward (> 2)")
@@ -798,7 +838,8 @@ def train_step_f32(cfg32, arrays, seed: int):
     return fails
 
 
-def train_steps_bf16(cfg, arrays, seed: int, n_prepare: int = 5, n_full: int = 3):
+def train_steps_bf16(cfg, arrays, seed: int, n_prepare: int = 5, n_full: int = 3,
+                     tag: str = "train steps bf16"):
     """The shipped bf16 train steps at full width: ``n_prepare`` prepare
     steps, then ``n_full`` full steps, from the JAX package's init. The first
     step of each phase is its warm-up; the others are timed per step and per
@@ -845,14 +886,13 @@ def train_steps_bf16(cfg, arrays, seed: int, n_prepare: int = 5, n_full: int = 3
             last_metrics=metrics[-1],
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         )
-        need = ["A", "A_dx", "D"] + (["B", "B_keys", "B_blocks", "B_cands", "C"]
-                                      if clustering else [])
+        need = ["A", "A_dx", "D"] + (cluster_kernels(cfg) if clustering else [])
         fails += [f"kernel {k} not launched in bf16 {phase} step {j}"
                   for j, counts in enumerate(per_step) for k in need if counts[k] <= 0]
         fails += [f"kernel C launched {counts['C']} times in bf16 {phase} step {j} (> 2)"
                   for j, counts in enumerate(per_step) if counts["C"] > 2]
     launches = read_counts()
-    log("train steps bf16", json.dumps(res))
+    log(tag, json.dumps(res))
     return launches, res, fails
 
 
@@ -919,14 +959,15 @@ def probe_path(cfg, hier):
 # ------------------------------------------------------------ full-scene serving
 
 
-def serving_checkpoint(ckpt_dir: str, seed: int, **budget_overrides) -> None:
+def serving_checkpoint(ckpt_dir: str, seed: int, models=None, **budget_overrides) -> None:
     """A port checkpoint of ``flagship.random_model`` weights whose run
-    config is ``conf/eval.yaml``'s (plus ``budget_overrides``)."""
+    config is ``conf/eval.yaml``'s (with the model yaml ``models`` where
+    given, plus ``budget_overrides``)."""
     from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import model_config
     from panopticsegforlargescalepointcloud_tpu_torch.flagship import random_model, serving_yaml
     from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
 
-    run_cfg = serving_yaml()
+    run_cfg = serving_yaml(models)
     run_cfg["budget_overrides"] = dict(budget_overrides)
     model = random_model(model_config(run_cfg)[0], seed)
     ModelCheckpoint(ckpt_dir, run_config=run_cfg).save_best_models_under_current_metrics(
@@ -957,7 +998,7 @@ def partition_agreement(a, b) -> float:
     return min(one_way(a, b), one_way(b, a))
 
 
-def scene_f32(tmp: str, seed: int):
+def scene_f32(tmp: str, seed: int, models=None, tag: str = "scene f32"):
     """A quarter of the forest through the eval CLI's path in f32, once
     with the kernels and once with the plain versions: per-point semantic
     labels >= 99.9% identical, the instance partition identical up to
@@ -970,14 +1011,15 @@ def scene_f32(tmp: str, seed: int):
 
     ply = os.path.join(tmp, "forest_quarter.ply")
     points = write_forest_scene(ply, quarter=True)
-    ckpt = os.path.join(tmp, "ckpt_f32")
-    serving_checkpoint(ckpt, seed, compute_dtype="float32", min_score=0.0)
+    ckpt = os.path.join(tmp, f"ckpt_f32_{models}")
+    serving_checkpoint(ckpt, seed, models, compute_dtype="float32", min_score=0.0)
+    over = [f"models=panoptic/{models}"] if models else []
     labels = {}
     for name, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
-        out = os.path.join(tmp, f"f32_{name}")
+        out = os.path.join(tmp, f"f32_{models}_{name}")
         ev, run_kwargs, _, _ = build_evaluator([f"checkpoint_dir={ckpt}",
                                                 f"data.files.test=[{ply}]",
-                                                "tiles_per_dispatch=1"])
+                                                "tiles_per_dispatch=1"] + over)
         with ctx():
             rep = ev.run(out_dir=out, **run_kwargs)[0]
         labels[name] = (scene_labels(out), rep)
@@ -987,17 +1029,17 @@ def scene_f32(tmp: str, seed: int):
                instance_partition_agreement=partition_agreement(ki, pi),
                instances=[int(len(np.unique(x[x >= 0]))) for x in (ki, pi)],
                meanPQ=[krep["meanPQ"], prep["meanPQ"]], mIoU=[krep["mIoU"], prep["mIoU"]])
-    log("scene f32 kernel vs plain", json.dumps(res))
-    fails = [] if min(res["instances"]) > 0 else ["scene f32: no instances to compare"]
+    log(f"{tag} kernel vs plain", json.dumps(res))
+    fails = [] if min(res["instances"]) > 0 else [f"{tag}: no instances to compare"]
     if res["semantic_identical"] < 0.999:
-        fails.append(f"scene f32 semantic labels identical {res['semantic_identical']} < 0.999")
+        fails.append(f"{tag} semantic labels identical {res['semantic_identical']} < 0.999")
     if res["instance_partition_agreement"] < 0.99:
-        fails.append(f"scene f32 instance partition agreement "
+        fails.append(f"{tag} instance partition agreement "
                      f"{res['instance_partition_agreement']} < 0.99")
     return fails
 
 
-def scene_bf16(tmp: str, seed: int, groups=(1, 2)):
+def scene_bf16(tmp: str, seed: int, groups=(1, 2), models=None, tag: str = "scene"):
     """The whole forest (~500k points) through the eval CLI's path in bf16,
     as shipped, from a port checkpoint: per tiles_per_dispatch g, one warm
     run, then one timed run without phase syncs (counts reset just before
@@ -1009,16 +1051,20 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2)):
 
     ply = os.path.join(tmp, "forest.ply")
     points = write_forest_scene(ply)
-    ckpt = os.path.join(tmp, "ckpt_bf16")
-    serving_checkpoint(ckpt, seed)
+    ckpt = os.path.join(tmp, f"ckpt_bf16_{models}")
+    serving_checkpoint(ckpt, seed, models)
+    over = [f"models=panoptic/{models}"] if models else []
     fails, res = [], {}
-    launches = {k: 0 for k in ("A", "B", "B_keys", "B_blocks", "B_cands", "C")}
+    launches = None
     for g in groups:
-        args = [f"checkpoint_dir={ckpt}", f"data.files.test=[{ply}]", f"tiles_per_dispatch={g}"]
+        args = [f"checkpoint_dir={ckpt}", f"data.files.test=[{ply}]",
+                f"tiles_per_dispatch={g}"] + over
         t0 = time.perf_counter()
         ev, run_kwargs, _, _ = build_evaluator(args)
         setup_s = time.perf_counter() - t0
-        out = os.path.join(tmp, f"bf16_g{g}")
+        if launches is None:
+            launches = {k: 0 for k in ["A"] + cluster_kernels(ev.pcfg)}
+        out = os.path.join(tmp, f"bf16_{models}_g{g}")
         ev.run(out_dir=out, **run_kwargs)  # warm
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1037,9 +1083,9 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2)):
         for k in launches:
             launches[k] += counts[k]
             if counts[k] <= 0:
-                fails.append(f"kernel {k} not launched in the bf16 scene at g={g}")
+                fails.append(f"kernel {k} not launched in the {tag} bf16 at g={g}")
         if counts["C"] > 2 * -(-tiles // g):
-            fails.append(f"kernel C launched {counts['C']} times in the bf16 scene at g={g} "
+            fails.append(f"kernel C launched {counts['C']} times in the {tag} bf16 at g={g} "
                          f"(> 2 per dispatch)")
         sem, ins = scene_labels(out)
         res[f"g{g}"] = dict(
@@ -1053,16 +1099,16 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2)):
             instances=int(len(np.unique(ins[ins >= 0]))),
             meanPQ=rep["meanPQ"], mIoU=rep["mIoU"], F1=rep["F1"],
         )
-        log(f"scene bf16 g={g}", json.dumps(res[f"g{g}"]))
+        log(f"{tag} bf16 g={g}", json.dumps(res[f"g{g}"]))
         if not all(math.isfinite(rep[k]) for k in ("meanPQ", "mIoU", "F1", "vote_miou")):
-            fails.append(f"scene bf16 g={g}: non-finite report {rep}")
+            fails.append(f"{tag} bf16 g={g}: non-finite report {rep}")
         if len(sem) != points:
-            fails.append(f"scene bf16 g={g}: {len(sem)} labels for {points} points")
+            fails.append(f"{tag} bf16 g={g}: {len(sem)} labels for {points} points")
     if len(groups) > 1:
-        a, b = (scene_labels(os.path.join(tmp, f"bf16_g{g}")) for g in groups[:2])
+        a, b = (scene_labels(os.path.join(tmp, f"bf16_{models}_g{g}")) for g in groups[:2])
         res["g2_vs_g1_semantic_identical"] = float((a[0] == b[0]).mean())
         res["g2_vs_g1_instance_partition_agreement"] = partition_agreement(a[1], b[1])
-    log("scene summary", json.dumps(res))
+    log(f"{tag} summary", json.dumps(res))
     return launches, res, fails
 
 
@@ -1097,6 +1143,231 @@ def eval_tile_shapes(tmp: str):
         fails += phase_meanshift(g, cfg.ms_max_seeds, cfg.ms_point_cap, cfg.embed_dim,
                                  cfg.bandwidth, seed=3, tag=f"eval tile C g={g}")[1]
     return rows, fails
+
+
+# ------------------------------------------------------------ the paper's settings
+
+
+@contextlib.contextmanager
+def captured(module, name: str, found: list):
+    """Pass every call of ``module.name`` through and record its arguments
+    (tensors cloned before the call)."""
+    fn0 = getattr(module, name)
+
+    def fn(*args, **kwargs):
+        found.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+        return fn0(*args, **kwargs)
+
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn0)
+
+
+def setting_forward(cfg, arrays, seed: int, name: str, repeats: int = 3):
+    """One setting's bf16 eval forward at the flagship's width: the launches
+    of one run (counts set to 0 just before it, read just after; the region
+    growing and mean-shift operands recorded), then ``repeats`` runs timed
+    whole and ``repeats`` with a phase split."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_cluster import (
+        captured_region_growing,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster import meanshift
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import random_model
+    from panopticsegforlargescalepointcloud_tpu_torch.train import make_eval_forward
+
+    model = random_model(cfg, seed)
+    fwd = make_eval_forward(cfg, model)
+    fwd(arrays)  # warm-up (allocator, first launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rg, ms = [], []
+    reset_counts()
+    with captured_region_growing(rg), captured(meanshift, "meanshift_converge", ms):
+        db, out = fwd(arrays)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tag = f"setting {name}"
+    need = ["A"] + cluster_kernels(cfg)
+    fails = [f"{tag}: {m}" for m in check_output(cfg, db, out)]
+    fails += [f"{tag}: kernel {k} not launched on the eval forward" for k in need
+              if launches[k] <= 0]
+    fails += [f"{tag}: kernel {k} launched {launches[k]} times on the eval forward"
+              for k in ("B", "C", "A_dx", "D") if k not in need and launches[k] != 0]
+    if launches["C"] > 1:
+        fails.append(f"{tag}: kernel C launched {launches['C']} times (one mean-shift run)")
+    whole, phased = [], []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(arrays)
+        torch.cuda.synchronize()
+        whole.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(repeats):
+        timer = PhaseTimer()
+        make_eval_forward(cfg, model, timer=timer)(arrays)
+        phased.append(timer.ms)
+    rec = dict(ms_per_forward=whole, ms_median=statistics.median(whole), phases_ms=phased,
+               launches_per_forward=launches, peak_mem_gib=peak,
+               valid_proposals=int(out.proposals.prop_valid.sum()),
+               proposal_slots=int(out.proposals.prop_valid.shape[0]),
+               cluster_overflow=int(out.cluster_overflow),
+               scorer_overflow=(None if out.scorer_overflow is None
+                                else int(out.scorer_overflow)),
+               region_growing_calls=len(rg), mean_shift_dims=[m[2].shape[2] for m in ms])
+    log(f"{tag} forward bf16", json.dumps(rec))
+    return rec, launches, rg, ms, fails
+
+
+def hdbscan_forward(cfg, arrays, seed: int, name: str):
+    """One bf16 eval forward of an HDBSCAN strategy after a warm one, timed
+    per phase (counts set to 0 just before it, read just after); the
+    HDBSCAN runs of the first op are held against the same function on the
+    CPU: partitions within 1% of the points (the card's and the host's
+    Gram products round differently)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster import hdbscan
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import random_model
+    from panopticsegforlargescalepointcloud_tpu_torch.models import pointgroup3heads
+    from panopticsegforlargescalepointcloud_tpu_torch.train import make_eval_forward
+
+    model = random_model(cfg, seed)
+    make_eval_forward(cfg, model)(arrays)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer()
+    fwd = make_eval_forward(cfg, model, timer=timer)
+    runs = []
+    reset_counts()
+    with captured(pointgroup3heads, "hdbscan_labels", runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db, out = fwd(arrays)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    tag = f"hdbscan {name}"
+    fails = [f"{tag}: {m}" for m in check_output(cfg, db, out)]
+    fails += [f"{tag}: kernel {k} launched {launches[k]} times" for k in ("B", "C", "A_dx", "D")
+              if launches[k] != 0]
+    if launches["A"] <= 0:
+        fails.append(f"{tag}: kernel A not launched")
+    x, valid = runs[0][0][:4], runs[0][1][:4]  # the first op's first 4 samples
+    kw = dict(min_samples=cfg.hd_min_samples, min_cluster_size=cfg.hd_min_cluster_size,
+              epsilon=cfg.hd_epsilon, max_clusters=cfg._op_max_clusters(cfg.embed_ops[0]),
+              selection=cfg.hd_selection)
+    card = hdbscan.hdbscan_labels(x, valid, **kw)
+    host = hdbscan.hdbscan_labels(x.cpu(), valid.cpu(), **kw)
+    agree = 1.0
+    for i in range(x.shape[0]):
+        v = valid[i].cpu()
+        if bool(v.any()):
+            agree = min(agree, partition_agreement(card.labels[i].cpu()[v].numpy(),
+                                                   host.labels[i][v].numpy()))
+    rec = dict(ms_per_forward=ms, hdbscan_ms=timer.ms.get("hdbscan"), phases_ms=timer.ms,
+               hdbscan_calls=len(runs), hdbscan_samples=[int(r[0].shape[0]) for r in runs],
+               points_per_sample=int(x.shape[1]), valid_points=int(valid.sum()),
+               clusters=card.num_clusters.tolist(), host_clusters=host.num_clusters.tolist(),
+               card_vs_host_partition_agreement=agree,
+               valid_proposals=int(out.proposals.prop_valid.sum()),
+               cluster_overflow=int(out.cluster_overflow), launches_per_forward=launches,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"{tag} forward bf16", json.dumps(rec))
+    if agree < 0.99:
+        fails.append(f"{tag}: card vs host partition agreement {agree} < 0.99")
+    return rec, launches, fails
+
+
+def settings_path(tmp: str, arrays, seed: int):
+    """The eighth path: the paper's Settings I, II, III and V at the
+    flagship's width (paper plan, in_feat 16, 131,072 rows of
+    ``build_inputs``, 4 samples, bf16, seeded weights): per setting 3 eval
+    forwards and 3 prepare + 2 full train steps with their launches;
+    kernel against plain version in f32 for the forwards of I and V; C at
+    Setting I's own operands (the embedding's 5 columns); B at both
+    region-growing sources of III and V; then the embed strategies 14 and 2
+    (HDBSCAN) and Setting I's scene through the eval CLI. Returns (launches
+    of the path's counted runs, records, failures)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_cluster import forward_operands
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import SETTINGS, flagship_config
+
+    fails, res = [], {}
+    total = {k: 0 for k in kernels()}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    for name in ("I", "II", "III", "V"):
+        cfg = flagship_config(num_samples=4, compute_dtype="bfloat16", models=SETTINGS[name])
+        rec, counts, rg, ms, f = setting_forward(cfg, arrays, seed, name)
+        fails += f
+        add(counts)
+        if name == "I":
+            for m in ms:
+                c_rec, f = check_meanshift(*m[:5], tag="setting I C", max_iter=m[5])
+                fails += f
+                res["C_setting_I"] = c_rec
+                if c_rec["e"] > 5:
+                    fails.append(f"setting I: C ran at E = {c_rec['e']} (> 5)")
+        for src, c in zip(cfg.rg_sources, rg):
+            t = min(cfg.resolved_point_cap(len(arrays[0])), c["pos"].shape[0])
+            b_rec, f = phase_pull(cfg, f"forward_{src}", t, *forward_operands(cfg, [c], t),
+                                  tag=f"setting {name} B {src}")
+            fails += f
+            res.setdefault("B", {})[f"{name}_{src}"] = {
+                k: b_rec[k] for k in ("t", "differing_rows", "pairs_evaluated", "ms",
+                                      "device_ms", "plain_ms", "bound_ms")}
+        if name in ("I", "V"):
+            fails += main_path_f32(dataclasses.replace(cfg, compute_dtype="float32"), arrays,
+                                   seed, tag=f"setting {name} f32 kernel vs plain")
+        launches, tres, f = train_steps_bf16(cfg, arrays, seed, n_prepare=3, n_full=2,
+                                             tag=f"setting {name} train steps bf16")
+        fails += f
+        add(launches)
+        res[name] = dict(
+            forward_ms=rec["ms_median"], forward_phases_ms=rec["phases_ms"][-1],
+            prepare_ms=tres["prepare"]["ms_per_step_median"],
+            full_ms=tres["full"]["ms_per_step_median"],
+            launches_per_forward={k: v for k, v in counts.items() if v},
+            launches_per_prepare_step={k: v for k, v in
+                                       tres["prepare"]["launches_per_step"][-1].items() if v},
+            launches_per_full_step={k: v for k, v in
+                                    tres["full"]["launches_per_step"][-1].items() if v},
+            peak_mem_gib=dict(forward=rec["peak_mem_gib"],
+                              prepare=tres["prepare"]["peak_mem_gib"],
+                              full=tres["full"]["peak_mem_gib"]),
+            valid_proposals=rec["valid_proposals"], cluster_overflow=rec["cluster_overflow"],
+            mean_shift_dims=rec["mean_shift_dims"])
+        torch.cuda.empty_cache()
+    for ct in (14, 2):
+        cfg = flagship_config(num_samples=4, compute_dtype="bfloat16", models=SETTINGS["I"],
+                              cluster_type=ct)
+        rec, counts, f = hdbscan_forward(cfg, arrays, seed, f"embed {ct}")
+        fails += f
+        add(counts)
+        res[f"embed{ct}"] = {k: rec[k] for k in ("ms_per_forward", "hdbscan_ms",
+                                                 "hdbscan_samples", "valid_proposals",
+                                                 "card_vs_host_partition_agreement",
+                                                 "peak_mem_gib")}
+        torch.cuda.empty_cache()
+    fails += scene_f32(tmp, seed, models=SETTINGS["I"], tag="setting I scene f32")
+    scene_launches, scene_res, f = scene_bf16(tmp, seed, models=SETTINGS["I"],
+                                              tag="setting I scene")
+    fails += f
+    add(scene_launches)
+    res["scene_I"] = {g: ({k: r[k] for k in ("s_per_scene", "points_per_s", "phases_s",
+                                             "launches_per_scene", "instances", "meanPQ")}
+                          if isinstance(r, dict) else r) for g, r in scene_res.items()}
+    log("settings summary", json.dumps(res))
+    return total, res, fails
 
 
 # ------------------------------------------------------------------ the trainer
@@ -1274,6 +1545,7 @@ def main() -> int:
     from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hierarchy
     from panopticsegforlargescalepointcloud_tpu_torch.train import canonicalize
 
+    t_start = time.perf_counter()
     log(card_line())
     t0 = time.perf_counter()
     _cuda.build(verbose=True)
@@ -1347,7 +1619,10 @@ def main() -> int:
         log(f"scene bf16 done: {time.perf_counter() - t0:.1f} s")
         trainer_launches, _, f = trainer_path(tmp)
         fails += f
-    log(f"trainer path done: {time.perf_counter() - t0:.1f} s")
+        log(f"trainer path done: {time.perf_counter() - t0:.1f} s")
+        settings_launches, settings_res, f = settings_path(tmp, arrays, seed=5)
+        fails += f
+    log(f"settings path done: {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(OUT_DIR, "conv_shapes.json"), "w") as fh:
         json.dump({"train_step": conv_rows, "eval_tile": tile_rows}, fh, indent=0)
 
@@ -1367,10 +1642,11 @@ def main() -> int:
         # counts of both main paths' counted runs; A's dX launches are its own
         # backward role of the same kernel
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
-                   "trainer": trainer_launches[key]}
+                   "trainer": trainer_launches[key], "settings": settings_launches[key]}
         if key == "A":
             by_path["train_steps_dx"] = train_launches["A_dx"]
             by_path["trainer_dx"] = trainer_launches["A_dx"]
+            by_path["settings_dx"] = settings_launches["A_dx"]
         if key in scene_launches:
             by_path["scene_eval"] = scene_launches[key]
         entries.append(dict(
@@ -1385,11 +1661,16 @@ def main() -> int:
                        "tables_ms", "tables_device_ms"),
                  "C": ("iterations_max", "iterations_mean")}.get(key, ())
         entries[-1].update({f: rec[f] for f in extra})
+        if key == "C":  # C at Setting I's own operands: the embedding's columns
+            entries[-1]["setting_I"] = {f: settings_res["C_setting_I"][f] for f in (
+                "b", "s", "np", "e", "counts_equal", "iterations_equal", "max_abs_err",
+                "iterations_max", "ms", "device_ms", "plain_ms", "bound_ms")}
     # B's table kernels, at the forward's own rows (T = 49,152)
     for key, part in (("B_keys", "keys"), ("B_blocks", "blocks"), ("B_cands", "cands")):
         k, rec = ks[key], b_rec["tables"][part]
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
-                   "scene_eval": scene_launches[key], "trainer": trainer_launches[key]}
+                   "scene_eval": scene_launches[key], "trainer": trainer_launches[key],
+                   "settings": settings_launches[key]}
         entries.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1414,6 +1695,7 @@ def main() -> int:
         for msg in fails:
             print("FAIL:", msg, file=sys.stderr)
         return 1
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,10 @@
         model_name=PointGroup-PAPER training=treeins training.epochs=150 \\
         "data.files.train=[path/to/a.ply]" "data.files.val=[path/to/b.ply]" [device=cpu]
 
-Composes ``conf/config.yaml`` with the overrides, writes it to
+``models=`` takes any model yaml of ``conf/models/panoptic`` without a
+point backbone: the paper's Settings I-V are ``area4_ablation_19``,
+``_14``, ``_15``, ``_3heads_5`` and ``_3heads_6``. Composes
+``conf/config.yaml`` with the overrides, writes it to
 ``<run_dir>/config_composed.yaml`` and trains; the run directory holds the
 checkpoint ``model.pt`` and the run log ``metrics.jsonl``. It is
 ``checkpoint_dir`` (or ``training.checkpoint_dir``) when given, and a run

@@ -215,19 +215,36 @@ def _dedup_keep(alive: torch.Tensor, order: torch.Tensor, near: torch.Tensor) ->
 
 
 def mean_shift(x: torch.Tensor, valid: torch.Tensor, bandwidth: float,
-               max_seeds: int = 256, max_iter: int = 100) -> MeanShiftResult:
+               max_seeds: int = 256, max_iter: int = 100,
+               cols: torch.Tensor | None = None) -> MeanShiftResult:
     """Batched mean shift. x [B, Np, E] f32, valid [B, Np] bool.
 
     Every seed iterates to its own freeze or ``max_iter``
     (:func:`meanshift_converge`); a frozen seed never changes again, so this
-    equals running each sample's loop on its own."""
+    equals running each sample's loop on its own.
+
+    ``cols`` [B, W] int64, when given, names the columns of each sample that
+    can be nonzero (index E: a zero column): the seeds are binned in the
+    whole space, where the bins' hash weighs each column by its own prime,
+    and the loop runs on those W columns only. A zero column adds exactly 0
+    to every distance and sum, so the result is the loop's on all E."""
     b, np_, e = x.shape
     dev = x.device
     x = x.float().contiguous()
     bw2 = float(bandwidth) * float(bandwidth)
     seeds, svalid = _bin_seeds(x, valid, bandwidth, max_seeds)
-    seeds, cnt, _ = meanshift_converge(seeds.contiguous(), svalid.contiguous(), x,
-                                       valid.contiguous(), bandwidth, max_iter)
+    if cols is None:
+        seeds, cnt, _ = meanshift_converge(seeds.contiguous(), svalid.contiguous(), x,
+                                           valid.contiguous(), bandwidth, max_iter)
+    else:
+        w = cols.shape[1]
+        pad = lambda t: torch.cat([t, t.new_zeros(t.shape[:-1] + (1,))], dim=-1)  # noqa: E731
+        xs = torch.gather(pad(x), 2, cols[:, None, :].expand(b, np_, w)).contiguous()
+        ss = torch.gather(pad(seeds), 2, cols[:, None, :].expand(b, seeds.shape[1], w))
+        ss, cnt, _ = meanshift_converge(ss.contiguous(), svalid.contiguous(), xs,
+                                        valid.contiguous(), bandwidth, max_iter)
+        seeds = pad(torch.zeros_like(seeds)).scatter(
+            2, cols[:, None, :].expand_as(ss), ss)[..., :e]
     alive = svalid & (cnt >= 1)
 
     s = seeds.shape[1]

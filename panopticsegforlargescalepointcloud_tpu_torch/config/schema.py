@@ -129,6 +129,8 @@ def panoptic_config_from_yaml(
         rg_point_cap=float(m.get("rg_point_cap", 0)),
         scorer_capacity_mult=float(m.get("scorer_capacity_mult", 1.0)),
         ms_point_cap=int(m.get("ms_point_cap", 16384)),
+        hd_point_cap=int(m.get("hd_point_cap", 2048)),
+        hd_selection=str(m.get("hd_selection", "eom")),
         min_iou_threshold=float(m.get("min_iou_threshold", 0.25)),
         max_iou_threshold=float(m.get("max_iou_threshold", 0.75)),
         # the model yaml's merge threshold defaults to 0.1, the reference

@@ -7,6 +7,7 @@ shared by ``chip_smoke.py``, :mod:`.trace_eval`, :mod:`.trace_train` and
   0.12 m data yaml, trained as ``conf/training/npm3d.yaml`` with the
   default exponential lr schedule; inputs as the JAX package's
   ``bench.py:build_inputs`` (4 synthetic 16 m cylinders in 131,072 rows).
+  The paper's other settings (``SETTINGS``) at the same width and data.
 * Serving: ``conf/eval.yaml``'s defaults, the same model on the FOR-instance
   data yaml ``treeins_rad8`` (2 classes, 0.2 m grid, 8 m cylinders,
   32,768-row eval tiles), on the JAX package's ``bench.py:measure_e2e``
@@ -36,10 +37,20 @@ from .train.step import TrainState, init_state
 CONF_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "conf")
 
 
-def _flagship_yaml():
+# the paper's ablation table: setting -> model yaml (conf/models/panoptic)
+SETTINGS = {
+    "I": "area4_ablation_19",  # PointGroupEmbed, mean shift on the embedding, no scores
+    "II": "area4_ablation_14",  # region growing on votes
+    "III": "area4_ablation_15",  # region growing on positions and on votes
+    "IV": "area4_ablation_3heads_5",  # votes + mean shift (the flagship)
+    "V": "area4_ablation_3heads_6",  # positions + votes + mean shift
+}
+
+
+def _flagship_yaml(models: str = SETTINGS["IV"]):
     return load_config(CONF_DIR, [
         "data=panoptic/npm3d-sparseconv_grid_012_R_16_cylinder_area1",
-        "models=panoptic/area4_ablation_3heads_5",
+        f"models=panoptic/{models}",
         "model_name=PointGroup-PAPER",
         "training=npm3d",
         "lr_scheduler=exponential",
@@ -47,8 +58,11 @@ def _flagship_yaml():
 
 
 def flagship_config(num_samples: int = 4, compute_dtype: str = "bfloat16",
-                    **overrides) -> PanopticConfig:
-    return panoptic_config_from_yaml(_flagship_yaml(), num_samples=num_samples,
+                    models: str = SETTINGS["IV"], **overrides) -> PanopticConfig:
+    """The flagship's data, training and width with the model yaml
+    ``models`` (a name of ``conf/models/panoptic``; ``SETTINGS`` maps the
+    paper's settings to theirs)."""
+    return panoptic_config_from_yaml(_flagship_yaml(models), num_samples=num_samples,
                                      compute_dtype=compute_dtype, **overrides)[0]
 
 
@@ -86,10 +100,12 @@ def build_inputs(num_tiles: int = 4, capacity: int = 131072, seed: int = 0,
     return batch_arrays(collate_tiles(tiles, capacity=capacity, num_tiles=num_tiles))
 
 
-def serving_yaml():
+def serving_yaml(models=None):
     """``conf/eval.yaml`` composed with its defaults (the run config a
-    serving checkpoint stores)."""
-    return load_config(CONF_DIR, [], root="eval.yaml")
+    serving checkpoint stores), with the model yaml ``models`` (a name of
+    ``conf/models/panoptic``) in place of its default where given."""
+    return load_config(CONF_DIR, [f"models=panoptic/{models}"] if models else [],
+                       root="eval.yaml")
 
 
 def write_forest_scene(path: str, seed: int = 0, quarter: bool = False) -> int:

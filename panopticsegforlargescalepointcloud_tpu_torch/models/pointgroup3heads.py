@@ -1,8 +1,12 @@
-"""PointGroup3Heads: backbone + semantic/offset/embed heads + UNet ScoreNet.
+"""PointGroup3Heads and PointGroupEmbed: backbone + semantic/offset/embed
+heads + UNet ScoreNet.
 
-Counterpart of the JAX package's ``models/pointgroup3heads.py`` for the 3heads
-family: ``backbone_heads``, ``score`` (UNet scorer), ``build_proposals``
-(region growing on the configured sources + mean shift on embeddings),
+Counterpart of the JAX package's ``models/pointgroup3heads.py`` for both
+families of the paper's ablation table: ``backbone_heads`` (the embed
+family has no offset head), ``score`` (UNet scorer), ``build_proposals``
+(3heads: region growing on the configured sources + mean shift on
+embeddings; embed: the ``EMBED_STRATEGIES`` ops, mean shift and HDBSCAN on
+random dimension subsets and region growing on positions),
 ``scorer_inputs`` (the ScoreNet grid, whose batch field is the proposal id
 and whose coords are centered per proposal) and ``panoptic_losses``.
 """
@@ -14,15 +18,18 @@ import dataclasses
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..cluster.hdbscan import hdbscan_labels
 from ..cluster.meanshift import mean_shift, pack_by_sample
 from ..cluster.region_grow import region_grow_folded
 from ..ops.hashing import BitLayout
 from ..ops.hierarchy import Hierarchy, build_hierarchy
 from ..ops.scatter import scatter_drop, segment_max, segment_min
 from ..ops.sparse import make_grid
+from ..utils import prng
 from .losses import (
     discriminative_loss,
     instance_iou,
@@ -34,12 +41,38 @@ from .modules import PointMLP
 from .plans import paper_backbone_plan, scorer_unet_plan, tiny_backbone_plan
 from .unet import SparseUNet
 
+# PointGroupEmbed strategy table (Setting I family), the JAX package's
+# EMBED_STRATEGIES: every op is (method, space, loops, low, high). loops 0:
+# one run on the whole space; loops L: L runs, each on a random subset of
+# [low, high] dimensions of the space. Spaces: "xyz" raw positions, "embed"
+# the embedding head's output, "both" their concatenation; "rg" ops grow
+# regions on raw positions.
+EMBED_STRATEGIES = {
+    1: (("hdbscan", "xyz", 0, 0, 0), ("hdbscan", "embed", 0, 0, 0)),
+    2: (("hdbscan", "both", 9, 3, 5), ("hdbscan", "embed", 0, 0, 0)),
+    3: (("hdbscan", "both", 9, 3, 5), ("hdbscan", "xyz", 0, 0, 0)),
+    4: (("hdbscan", "both", 8, 3, 5), ("hdbscan", "embed", 0, 0, 0),
+        ("hdbscan", "xyz", 0, 0, 0)),
+    5: (("hdbscan", "both", 10, 3, 5),),
+    6: (("hdbscan", "embed", 6, 2, 5),),
+    7: (("meanshift", "embed", 0, 0, 0),),
+    8: (("rg", "pos", 0, 0, 0), ("meanshift", "embed", 0, 0, 0)),
+    9: (("rg", "pos", 0, 0, 0), ("meanshift", "embed", 10, 3, 5)),
+    10: (("meanshift", "embed", 6, 2, 5),),
+    11: (("hdbscan", "embed", 6, 2, 5),),
+    12: (("rg", "pos", 0, 0, 0), ("meanshift", "embed", 6, 2, 5)),
+    13: (("hdbscan", "embed", 6, 2, 5), ("hdbscan", "xyz", 0, 0, 0)),
+    14: (("hdbscan", "embed", 0, 0, 0),),
+    15: (("meanshift", "embed", 6, 2, 5), ("hdbscan", "embed", 0, 0, 0)),
+    16: (("hdbscan", "embed", 6, 2, 5), ("meanshift", "embed", 0, 0, 0)),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class PanopticConfig:
     """Static model + clustering configuration (the model YAML). Field
     meanings and defaults follow the JAX package's PanopticConfig; only the
-    fields of the eval forward are kept. There is no switch that selects a
+    fields of the port's paths are kept. There is no switch that selects a
     kernel: on the card the kernels are the path."""
 
     num_classes: int
@@ -47,11 +80,14 @@ class PanopticConfig:
     feat_dim: int = 4
     in_feat: int = 16
     embed_dim: int = 5
+    # "3heads" (PointGroup3Heads, Settings II-V) or "embed" (PointGroupEmbed,
+    # Setting I: no offset head, cluster strategies from EMBED_STRATEGIES)
     model_family: str = "3heads"
     cluster_type: int = 5
     bandwidth: float = 0.6
     cluster_radius: float = 0.3
     prepare_epoch: int = 30
+    # "unet" | "" (semantic certainty: the members' mean class probability)
     scorer_type: str = "unet"
     use_score_net: bool = True
     mask_supervise: bool = False
@@ -75,6 +111,15 @@ class PanopticConfig:
     # rows (rounded up to the dense-pull tile, 2048) or an absolute count
     rg_point_cap: float = 0
     min_cluster_size: int = 10
+    # HDBSCAN (embed family; the reference's hdbscan_cluster.py settings)
+    hd_min_samples: int = 5
+    hd_min_cluster_size: int = 15
+    hd_epsilon: float = 0.006
+    hd_max_clusters: int = 32  # per sample, runs on the whole space
+    hd_point_cap: int = 2048  # thing points per sample fed to HDBSCAN
+    hd_selection: str = "eom"  # excess of mass (exact) | "gap" (one cut)
+    loop_max_clusters: int = 8  # per sample per random-subset run
+    embed_subset_seed: int = 0  # the subsets' base key
     # eval-time instance extraction (reference structure_3heads.py:28)
     nms_threshold: float = 0.3
     min_cluster_points: int = 100
@@ -92,9 +137,7 @@ class PanopticConfig:
                 f"the proposal-id field (fewer coord bits) or shrink max_props_rg/ms budgets"
             )
         unsupported = []
-        if self.model_family != "3heads":
-            unsupported.append(f"model_family={self.model_family!r}")
-        if self.scorer_type != "unet" or not self.use_score_net:
+        if self.scorer_type in ("encoder", "mlp"):
             unsupported.append(f"scorer_type={self.scorer_type!r}")
         if self.mask_supervise:
             unsupported.append("mask_supervise")
@@ -121,17 +164,50 @@ class PanopticConfig:
         return 6 if self.backbone == "paper" else 2
 
     @property
+    def has_offset(self) -> bool:
+        return self.model_family != "embed"
+
+    @property
+    def embed_ops(self) -> Tuple[Tuple, ...]:
+        return EMBED_STRATEGIES[self.cluster_type]
+
+    @property
+    def num_sources(self) -> int:
+        if self.model_family == "embed":
+            return len(self.embed_ops)
+        return {1: 1, 2: 2, 3: 1, 4: 2, 5: 2, 6: 3}[self.cluster_type]
+
+    @property
     def rg_sources(self) -> Tuple[str, ...]:
         """Which geometric inputs feed region growing, in tag order."""
+        if self.model_family == "embed":
+            return tuple(op[1] for op in self.embed_ops if op[0] == "rg")
         return {1: ("vote",), 2: ("pos", "vote"), 3: (), 4: ("pos",), 5: ("vote",),
                 6: ("pos", "vote")}[self.cluster_type]
 
     @property
     def use_meanshift(self) -> bool:
+        if self.model_family == "embed":
+            return any(op[0] == "meanshift" for op in self.embed_ops)
         return self.cluster_type in (3, 4, 5, 6)
+
+    def _op_budget(self, op) -> int:
+        method, _, loops, _, _ = op
+        if method == "rg":
+            return self.max_props_rg
+        return self.num_samples * self._op_max_clusters(op) * max(loops, 1)
+
+    def _op_max_clusters(self, op) -> int:
+        """Proposals per sample per run of a clustering op."""
+        method, _, loops, _, _ = op
+        if loops > 0:
+            return self.loop_max_clusters
+        return self.hd_max_clusters if method == "hdbscan" else self.ms_max_clusters
 
     @property
     def total_props(self) -> int:
+        if self.model_family == "embed":
+            return sum(self._op_budget(op) for op in self.embed_ops)
         p = len(self.rg_sources) * self.max_props_rg
         if self.use_meanshift:
             p += self.num_samples * self.ms_max_clusters
@@ -172,7 +248,10 @@ class PanopticOutput(NamedTuple):
 
 class PointGroup3HeadsNet(nn.Module):
     """Backbone + 3 heads (each MLP([F, F], bias=False) -> Linear) + the UNet
-    ScoreNet with its sigmoid head. Attribute names follow the flax model."""
+    ScoreNet with its sigmoid head. Attribute names follow the flax model.
+    The embed family has no offset head; its ScoreNet weights exist as in
+    the flax tree (whose init touches the scorer) even where no forward
+    uses them (``use_score_net`` false, or the semantic-certainty score)."""
 
     def __init__(self, cfg: PanopticConfig):
         super().__init__()
@@ -182,8 +261,9 @@ class PointGroup3HeadsNet(nn.Module):
         self.backbone = SparseUNet(**plan_fn(cfg.feat_dim, f), compute_dtype=cfg.compute_dtype)
         self.semantic_mlp = PointMLP(f, (f,), use_bias=False)
         self.semantic_out = nn.Linear(f, cfg.num_classes)
-        self.offset_mlp = PointMLP(f, (f,), use_bias=False)
-        self.offset_out = nn.Linear(f, 3)
+        if cfg.has_offset:
+            self.offset_mlp = PointMLP(f, (f,), use_bias=False)
+            self.offset_out = nn.Linear(f, 3)
         self.embed_mlp = PointMLP(f, (f,), use_bias=False)
         self.embed_out = nn.Linear(f, cfg.embed_dim)
         self.scorer = SparseUNet(**scorer_unet_plan(f), compute_dtype=cfg.compute_dtype)
@@ -194,7 +274,10 @@ class PointGroup3HeadsNet(nn.Module):
         mask = hier.grids[0].mask
         x = self.backbone(feats, hier, momentum)
         sem = torch.log_softmax(self.semantic_out(self.semantic_mlp(x, mask, momentum)), dim=-1)
-        off = self.offset_out(self.offset_mlp(x, mask, momentum))
+        if self.cfg.has_offset:
+            off = self.offset_out(self.offset_mlp(x, mask, momentum))
+        else:
+            off = x.new_zeros((x.shape[0], 3))
         emb = self.embed_out(self.embed_mlp(x, mask, momentum))
         m = mask[:, None]
         return x, sem, torch.where(m, off, 0.0), torch.where(m, emb, 0.0)
@@ -212,14 +295,90 @@ def _phase(timer, name):
     return timer(name) if timer is not None else contextlib.nullcontext()
 
 
+class _Blocks:
+    """The membership table under construction: one block of N rows per
+    clustering run, in tag order, each with its proposals' validity, sample
+    and tag; ids are laid out run after run."""
+
+    def __init__(self, n: int, dev):
+        self.n, self.dev = n, dev
+        self.points, self.valid, self.batch, self.type = [], [], [], []
+        self.id_offset = 0
+
+    def add_region_growing(self, rg) -> None:
+        self.points.append(torch.where(rg.point_prop >= 0, rg.point_prop + self.id_offset,
+                                       torch.full_like(rg.point_prop, -1)))
+        self.valid.append(rg.prop_valid)
+        self.batch.append(rg.prop_batch)
+        self._next(rg.prop_valid.shape[0])
+
+    def add_per_sample(self, lab, ncl, percap: int, src_row) -> None:
+        """A run of per-sample clusters: ``lab`` [B, Np] in [0, percap) or -1,
+        ``ncl`` [B] clusters per sample, ``src_row`` [B, Np] the flat row of
+        each packed point (-1 pad); proposal ids ``sample * percap + lab``."""
+        b = lab.shape[0]
+        sample_ids = torch.arange(b, dtype=torch.int32, device=self.dev)[:, None]
+        pid = torch.where(lab >= 0, self.id_offset + sample_ids * percap + lab,
+                          torch.full_like(lab, -1))
+        tgt = torch.where(src_row >= 0, src_row, torch.full_like(src_row, self.n))
+        self.points.append(scatter_drop(self.n, -1, tgt.reshape(-1), pid.reshape(-1)))
+        cl_ids = torch.arange(percap, dtype=torch.int32, device=self.dev)
+        pv = (cl_ids[None, :] < ncl[:, None]).reshape(-1)
+        pb = sample_ids.expand(b, percap).reshape(-1)
+        self.valid.append(pv)
+        self.batch.append(torch.where(pv, pb, torch.full_like(pb, -1)))
+        self._next(b * percap)
+
+    def _next(self, num_ids: int) -> None:
+        self.type.append(torch.full((num_ids,), len(self.type), dtype=torch.int32,
+                                    device=self.dev))
+        self.id_offset += num_ids
+
+    def proposals(self) -> Proposals:
+        point_idx = torch.arange(self.n, dtype=torch.int32, device=self.dev).repeat(
+            len(self.points))
+        prop_id = torch.cat(self.points)
+        member_valid = prop_id >= 0
+        return Proposals(
+            point_idx=torch.where(member_valid, point_idx, torch.full_like(point_idx, -1)),
+            prop_id=prop_id,
+            member_valid=member_valid,
+            prop_valid=torch.cat(self.valid),
+            prop_batch=torch.cat(self.batch),
+            prop_type=torch.cat(self.type),
+        )
+
+
+def _region_grow(cfg: PanopticConfig, grow_pos, pred, batch, thing, timer):
+    with _phase(timer, "region_growing"):
+        return region_grow_folded(
+            grow_pos, pred, batch, thing,
+            radius=cfg.cluster_radius,
+            max_proposals=cfg.max_props_rg,
+            num_classes=cfg.num_classes,
+            num_samples=cfg.num_samples,
+            point_cap=cfg.resolved_point_cap(grow_pos.shape[0]),
+            min_cluster_size=cfg.min_cluster_size,
+        )
+
+
+def _ms_labels(ms, percap: int):
+    """Mean-shift clusters past ``percap`` per sample become unassigned."""
+    lab = torch.where((ms.labels >= 0) & (ms.labels < percap), ms.labels,
+                      torch.full_like(ms.labels, -1))
+    return lab, torch.clamp(ms.num_clusters, max=percap)
+
+
 @torch.no_grad()
 def build_proposals(cfg: PanopticConfig, pos, offsets, embeds, sem_logp, batch, valid,
-                    timer=None):
+                    timer=None, subset_seed=None):
     """Run the configured cluster sources and assemble the membership table
     (``num_sources`` blocks of N rows). Returns (proposals, cluster_overflow).
-    ``timer(name)``, when given, wraps the region growing and the mean shift.
-    Clustering emits integer assignments only, so it runs without autograd
-    (the JAX package's ``stop_gradient`` around it)."""
+    ``timer(name)``, when given, wraps the region growing, the mean shift
+    and HDBSCAN. ``subset_seed`` (embed family): the counter of the random
+    dimension subsets, an int or one int per sample (see
+    :func:`_subset_masks`). Clustering emits integer assignments only, so it
+    runs without autograd (the JAX package's ``stop_gradient`` around it)."""
     n = pos.shape[0]
     dev = pos.device
     pred = torch.argmax(sem_logp, dim=-1).to(torch.int32)
@@ -227,32 +386,16 @@ def build_proposals(cfg: PanopticConfig, pos, offsets, embeds, sem_logp, batch, 
     for c in cfg.stuff_classes:
         is_stuff = is_stuff | (pred == c)
     thing = valid & ~is_stuff
+    if cfg.model_family == "embed":
+        return _embed_proposals(cfg, pos, embeds, pred, batch, thing, subset_seed, timer)
 
-    point_blocks, prop_valid_parts, prop_batch_parts, prop_type_parts = [], [], [], []
-    id_offset = 0
-    tag = 0
+    blocks = _Blocks(n, dev)
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     for src in cfg.rg_sources:
-        grow_pos = pos + offsets if src == "vote" else pos
-        with _phase(timer, "region_growing"):
-            rg = region_grow_folded(
-                grow_pos, pred, batch, thing,
-                radius=cfg.cluster_radius,
-                max_proposals=cfg.max_props_rg,
-                num_classes=cfg.num_classes,
-                num_samples=cfg.num_samples,
-                point_cap=cfg.resolved_point_cap(n),
-                min_cluster_size=cfg.min_cluster_size,
-            )
+        rg = _region_grow(cfg, pos + offsets if src == "vote" else pos, pred, batch, thing,
+                          timer)
         overflow = overflow + rg.overflow
-        point_blocks.append(torch.where(rg.point_prop >= 0, rg.point_prop + id_offset,
-                                        torch.full_like(rg.point_prop, -1)))
-        prop_valid_parts.append(rg.prop_valid)
-        prop_batch_parts.append(rg.prop_batch)
-        prop_type_parts.append(torch.full((cfg.max_props_rg,), tag, dtype=torch.int32,
-                                          device=dev))
-        id_offset += cfg.max_props_rg
-        tag += 1
+        blocks.add_region_growing(rg)
 
     if cfg.use_meanshift:
         dense, dvalid, src_row, dropped = pack_by_sample(
@@ -264,34 +407,126 @@ def build_proposals(cfg: PanopticConfig, pos, offsets, embeds, sem_logp, batch, 
         with _phase(timer, "mean_shift"):
             ms = mean_shift(dense, dvalid, bandwidth=cfg.bandwidth,
                             max_seeds=cfg.ms_max_seeds)
-        lab = torch.where((ms.labels >= 0) & (ms.labels < cfg.ms_max_clusters), ms.labels,
-                          torch.full_like(ms.labels, -1))
-        sample_ids = torch.arange(cfg.num_samples, dtype=torch.int32, device=dev)[:, None]
-        dense_pid = torch.where(lab >= 0, id_offset + sample_ids * cfg.ms_max_clusters + lab,
-                                torch.full_like(lab, -1))
-        tgt = torch.where(src_row >= 0, src_row, torch.full_like(src_row, n))
-        point_blocks.append(scatter_drop(n, -1, tgt.reshape(-1), dense_pid.reshape(-1)))
-        ncl = torch.clamp(ms.num_clusters, max=cfg.ms_max_clusters)
-        cl_ids = torch.arange(cfg.ms_max_clusters, dtype=torch.int32, device=dev)
-        ms_valid = (cl_ids[None, :] < ncl[:, None]).reshape(-1)
-        ms_batch = sample_ids.expand(cfg.num_samples, cfg.ms_max_clusters).reshape(-1)
-        prop_valid_parts.append(ms_valid)
-        prop_batch_parts.append(torch.where(ms_valid, ms_batch, torch.full_like(ms_batch, -1)))
-        prop_type_parts.append(torch.full((cfg.num_samples * cfg.ms_max_clusters,), tag,
-                                          dtype=torch.int32, device=dev))
+        blocks.add_per_sample(*_ms_labels(ms, cfg.ms_max_clusters), cfg.ms_max_clusters,
+                              src_row)
+    return blocks.proposals(), overflow
 
-    point_idx = torch.arange(n, dtype=torch.int32, device=dev).repeat(len(point_blocks))
-    prop_id = torch.cat(point_blocks)
-    member_valid = prop_id >= 0
-    props = Proposals(
-        point_idx=torch.where(member_valid, point_idx, torch.full_like(point_idx, -1)),
-        prop_id=prop_id,
-        member_valid=member_valid,
-        prop_valid=torch.cat(prop_valid_parts),
-        prop_batch=torch.cat(prop_batch_parts),
-        prop_type=torch.cat(prop_type_parts),
-    )
-    return props, overflow
+
+def _subset_seeds(cfg: PanopticConfig, subset_seed) -> Optional[np.ndarray]:
+    """The per-sample counters: one int broadcasts to every sample (one
+    shared draw, as in training), or one int per sample (grouped eval
+    dispatch: each tile draws what it would draw alone)."""
+    if subset_seed is None:
+        return None
+    seeds = np.asarray(subset_seed, dtype=np.int64).reshape(-1) % 2**32
+    if seeds.shape[0] == 1:
+        seeds = np.repeat(seeds, cfg.num_samples)
+    if seeds.shape[0] != cfg.num_samples:
+        raise ValueError(f"subset_seed: {seeds.shape[0]} counters for "
+                         f"{cfg.num_samples} samples")
+    return seeds
+
+
+def _subset_masks(cfg: PanopticConfig, space: str, loops: int, low: int, high: int,
+                  seeds: Optional[np.ndarray] = None, tag: int = 0) -> np.ndarray:
+    """0/1 dimension masks of one strategy op over the 3 + E features
+    (xyz, then the embedding). Zeroing the other dimensions makes every
+    distance the subspace's. loops 0: the whole space, [1, d]. With
+    ``seeds`` (one counter per sample) each sample's subsets are drawn as
+    the JAX package draws them with ``jax.random`` (key
+    ``fold_in(PRNGKey(embed_subset_seed), counter)``, see
+    :func:`..utils.prng.subset_mask_rows`): [B, loops, d]. Without, fixed
+    numpy masks from ``embed_subset_seed``: [loops, d]."""
+    d = 3 + cfg.embed_dim
+    pool = {"xyz": np.arange(3), "embed": np.arange(3, d), "both": np.arange(d)}[space]
+    if loops == 0:
+        m = np.zeros((1, d), np.float32)
+        m[0, pool] = 1.0
+        return m
+    if seeds is not None:
+        base = prng.prng_key(cfg.embed_subset_seed)
+        return np.stack([prng.subset_mask_rows(prng.fold_in(base, int(s)), pool, d, loops,
+                                               low, high, tag) for s in seeds])
+    rng = np.random.default_rng(cfg.embed_subset_seed)
+    masks = np.zeros((loops, d), np.float32)
+    for i in range(loops):
+        k = min(int(rng.integers(low, high + 1)), len(pool))
+        masks[i, rng.choice(pool, size=k, replace=False)] = 1.0
+    return masks
+
+
+def _mask_columns(masks: np.ndarray, width: int) -> np.ndarray:
+    """[R, B, d] 0/1 masks -> [R * B, width] the selected columns of each
+    run and sample in increasing order, padded with d (a zero column)."""
+    r, b, d = masks.shape
+    cols = np.full((r * b, width), d, np.int64)
+    for i, row in enumerate(masks.reshape(r * b, d)):
+        sel = np.flatnonzero(row)
+        cols[i, :len(sel)] = sel
+    return cols
+
+
+def _embed_proposals(cfg: PanopticConfig, pos, embeds, pred, batch, thing, subset_seed,
+                     timer):
+    """The PointGroupEmbed strategy ``cfg.cluster_type``
+    (``EMBED_STRATEGIES``): region growing on raw positions, and mean shift
+    or HDBSCAN over xyz, the embedding or both, on the whole space or on
+    random dimension subsets. Points are packed per sample once per cap
+    (``ms_point_cap``, ``hd_point_cap``); each pack's dropped rows count once
+    in the overflow. Samples with at most 3 thing points (5 for subset
+    runs) are skipped, as the reference's cluster_single / cluster_loop.
+    The runs of one op are one batch of R * B samples. Mean shift runs its
+    loop (kernel C) on each run's selected columns only."""
+    n = pos.shape[0]
+    dev = pos.device
+    seeds = _subset_seeds(cfg, subset_seed)
+    feats_all = torch.cat([pos.float(), embeds.float()], dim=1)
+    d = feats_all.shape[1]
+    packs = {}
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    blocks = _Blocks(n, dev)
+    b = cfg.num_samples
+    for op in cfg.embed_ops:
+        method, space, loops, low, high = op
+        if method == "rg":
+            rg = _region_grow(cfg, pos, pred, batch, thing, timer)
+            overflow = overflow + rg.overflow
+            blocks.add_region_growing(rg)
+            continue
+        cap = cfg.hd_point_cap if method == "hdbscan" else cfg.ms_point_cap
+        if cap not in packs:
+            packs[cap] = pack_by_sample(feats_all, batch, thing, b, cap)
+            overflow = overflow + packs[cap][3]
+        dense, dvalid, src_row, _ = packs[cap]
+        counts = dvalid.to(torch.int32).sum(dim=1)
+        run_valid = dvalid & (counts > (5 if loops > 0 else 3))[:, None]
+        percap = cfg._op_max_clusters(op)
+        masks = _subset_masks(cfg, space, loops, low, high, seeds, len(blocks.type))
+        masks = masks if masks.ndim == 3 else np.broadcast_to(masks, (b,) + masks.shape)
+        masks = np.array(masks.transpose(1, 0, 2), dtype=np.float32)  # [R, B, d]
+        runs = masks.shape[0]
+        m = torch.from_numpy(masks).to(dev)
+        x = (dense[None] * m[:, :, None, :]).reshape(runs * b, cap, d)
+        rv = run_valid.repeat(runs, 1)
+        if method == "hdbscan":
+            with _phase(timer, "hdbscan"):
+                res = hdbscan_labels(x, rv, min_samples=cfg.hd_min_samples,
+                                     min_cluster_size=cfg.hd_min_cluster_size,
+                                     epsilon=cfg.hd_epsilon, max_clusters=percap,
+                                     selection=cfg.hd_selection)
+            lab, ncl = res.labels, res.num_clusters
+        else:
+            width = {"xyz": 3, "embed": cfg.embed_dim, "both": d}[space]
+            width = min(width, high) if loops > 0 else width
+            cols = torch.from_numpy(_mask_columns(masks, width)).to(dev)
+            with _phase(timer, "mean_shift"):
+                ms = mean_shift(x, rv, bandwidth=cfg.bandwidth, max_seeds=cfg.ms_max_seeds,
+                                cols=cols)
+            lab, ncl = _ms_labels(ms, percap)
+        lab, ncl = lab.reshape(runs, b, cap), ncl.reshape(runs, b)
+        for li in range(runs):
+            blocks.add_per_sample(lab[li], ncl[li], percap, src_row)
+    return blocks.proposals(), overflow
 
 
 def scorer_inputs(cfg: PanopticConfig, props: Proposals, coords, backbone_feats):
@@ -333,16 +568,18 @@ def panoptic_losses(cfg: PanopticConfig, out: PanopticOutput, labels_y, vote_lab
                     class_weights: torch.Tensor | None = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The total loss and its terms (the JAX package's ``panoptic_losses``
-    without the mask branch): semantic NLL, offset norm and direction,
-    discriminative embedding, and with proposals and scores the ScoreNet's
-    IoU loss; the overflow counters ride along as f32 metrics."""
+    without the mask branch): semantic NLL, offset norm and direction (with
+    an offset head), discriminative embedding, and with proposals and
+    scores the IoU loss of the scores; the overflow counters ride along as
+    f32 metrics."""
     losses = {"semantic_loss": semantic_nll_loss(out.semantic_logits, labels_y, valid,
                                                  class_weights)}
     total = cfg.w_semantic * losses["semantic_loss"]
-    off = offset_loss(out.offset_logits, vote_label, instance_mask & valid)
-    losses.update(off)
-    total = total + cfg.w_offset_norm * off["offset_norm_loss"]
-    total = total + cfg.w_offset_dir * off["offset_dir_loss"]
+    if cfg.has_offset:
+        off = offset_loss(out.offset_logits, vote_label, instance_mask & valid)
+        losses.update(off)
+        total = total + cfg.w_offset_norm * off["offset_norm_loss"]
+        total = total + cfg.w_offset_dir * off["offset_dir_loss"]
     disc = discriminative_loss(out.embed_logits, instance_labels, batch, instance_mask & valid,
                                cfg.num_samples, cfg.max_instances)
     losses.update(disc)

@@ -148,7 +148,11 @@ class FullSceneEvaluator:
                 with self._phase("collate"):
                     vb = collate_tiles([t for t, _ in padded],
                                        capacity=self.capacity * g, num_tiles=g)
-                db, out = self._fwd(batch_arrays(vb))
+                # the embed family's subsets: one counter per (vote, tile),
+                # so each tile of a group draws what it draws at g = 1
+                # (padded repeat samples draw past-the-end counters)
+                db, out = self._fwd(batch_arrays(vb),
+                                    subset_seed=vote * len(tiles) + start + np.arange(g))
                 self._accumulate_dispatch(acc, db, out, [ids for _, ids in group], th)
         with self._phase("finalise"):
             sem, ins = acc.finalise(
@@ -195,15 +199,17 @@ class FullSceneEvaluator:
                 "batch": db.grid.batch,
                 "origin": db.origin_id,
                 "sem": out.semantic_logits,
-                "cluster_overflow": out.cluster_overflow,
-                "scorer_overflow": out.scorer_overflow,
             }
+            # no ScoreNet (use_score_net false, semantic certainty): no
+            # scorer overflow
+            fetch.update({k: getattr(out, k) for k in self.last_overflow
+                          if getattr(out, k) is not None})
             dev = device_part(out.proposals, out.cluster_scores, db.grid.capacity)
             fetch.update({"p_" + k: v for k, v in dev.items()})
             host = pull(fetch)
             props = {k[2:]: v for k, v in host.items() if k.startswith("p_")}
             for k in self.last_overflow:
-                self.last_overflow[k] += int(host[k])
+                self.last_overflow[k] += int(host.get(k, 0))
             # with g > 1 each tile takes only its own proposals, the padded
             # repeat samples' included: none of theirs reach a real tile
             tile_clusters = [

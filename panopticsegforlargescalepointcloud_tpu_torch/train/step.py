@@ -36,7 +36,7 @@ from ..models.pointgroup3heads import (
     scorer_inputs,
 )
 from ..ops.hierarchy import Hierarchy, build_hierarchy
-from ..ops.scatter import segment_max
+from ..ops.scatter import segment_max, segment_mean
 from ..ops.sparse import SparseGrid, make_grid
 from .optim import Schedule, make_optimizer, optimizer_step
 
@@ -100,12 +100,16 @@ def canonicalize(coords, batch, mask, feats, pos, y, instance_labels, vote_label
 
 def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: DeviceBatch,
                      hier: Hierarchy, with_clustering: bool = True, momentum=0.1,
-                     timer: Optional[Callable] = None) -> PanopticOutput:
-    """Backbone + heads, then (``with_clustering``) proposals and ScoreNet
-    scores. The model's mode decides the BN statistics (``model.train()``:
-    batch statistics, running statistics updated with ``momentum``) and the
-    caller's grad mode whether a graph is built. Clustering runs on detached
-    heads; the ScoreNet's input keeps its gradient to the backbone.
+                     timer: Optional[Callable] = None, subset_seed=None) -> PanopticOutput:
+    """Backbone + heads, then (``with_clustering``) proposals and their
+    scores: the ScoreNet's (``scorer_type`` "unet"), the semantic certainty
+    (``scorer_type`` "": the largest class probability of the members' mean
+    log-probabilities) or none (``use_score_net`` false). The model's mode
+    decides the BN statistics (``model.train()``: batch statistics, running
+    statistics updated with ``momentum``) and the caller's grad mode whether
+    a graph is built. Clustering runs on detached heads; the scores keep
+    their gradient to the backbone. ``subset_seed``: the embed family's
+    subset counter (:func:`..models.pointgroup3heads.build_proposals`).
     ``timer(name)``, when given, returns a context manager wrapped around
     each phase."""
     with _phase(timer, "backbone_heads"):
@@ -115,10 +119,21 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
                               backbone_feats=x)
     props, cluster_overflow = build_proposals(
         cfg, db.pos, off.detach(), emb.detach(), sem.detach(), db.grid.batch, db.grid.mask,
-        timer=timer)
-    with _phase(timer, "scorenet"):
-        sg, shier, sfeats, _, scorer_overflow = scorer_inputs(cfg, props, db.grid.coords, x)
-        scores = model.score(sfeats, shier, sg.batch, cfg.total_props, momentum)
+        timer=timer, subset_seed=subset_seed)
+    scores = scorer_overflow = None
+    if cfg.use_score_net and not cfg.scorer_type:
+        # semantic certainty (the reference's _compute_score without a scorer)
+        ok = props.member_valid & (props.prop_id >= 0)
+        seg = torch.where(ok, props.prop_id, torch.full_like(props.prop_id, -1))
+        mean_logp = segment_mean(sem[props.point_idx.clamp(min=0).long()] * ok[:, None],
+                                 seg, cfg.total_props)
+        scores = torch.exp(mean_logp).max(dim=-1).values
+        scores = torch.where(props.prop_valid, scores, torch.zeros_like(scores))
+    elif cfg.use_score_net:
+        with _phase(timer, "scorenet"):
+            sg, shier, sfeats, _, scorer_overflow = scorer_inputs(cfg, props, db.grid.coords,
+                                                                  x)
+            scores = model.score(sfeats, shier, sg.batch, cfg.total_props, momentum)
     return PanopticOutput(
         semantic_logits=sem,
         offset_logits=off,
@@ -133,21 +148,26 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
 
 def make_eval_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, device=None,
                       timer: Optional[Callable] = None, with_clustering: bool = True):
-    """Inference: ``fwd(arrays) -> (DeviceBatch, PanopticOutput)``,
-    with ``arrays`` in the JAX package's ``batch_arrays`` order. Runs on
-    ``cuda`` unless ``device="cpu"``; moves the model there and runs it in
-    eval mode. ``with_clustering=False`` stops after the heads (the
+    """Inference: ``fwd(arrays, subset_seed=None) -> (DeviceBatch,
+    PanopticOutput)``, with ``arrays`` in the JAX package's ``batch_arrays``
+    order. The embed family's random subsets take ``subset_seed`` (an int,
+    or one per sample; 0 when not given); the other families ignore it.
+    Runs on ``cuda`` unless ``device="cpu"``; moves the model there and runs
+    it in eval mode. ``with_clustering=False`` stops after the heads (the
     trainer's validation before the full phase)."""
     dev = resolve_device(device)
     model.to(dev)
+    embed = cfg.model_family == "embed"
 
     @torch.no_grad()
-    def fwd(arrays):
+    def fwd(arrays, subset_seed=None):
         model.eval()
         with _phase(timer, "hierarchy"):
             db = canonicalize(*arrays, device=dev)
             hier = build_hierarchy(db.grid, cfg.num_down, device=dev)
-        return db, panoptic_forward(cfg, model, db, hier, with_clustering, timer=timer)
+        seed = (0 if subset_seed is None else subset_seed) if embed else None
+        return db, panoptic_forward(cfg, model, db, hier, with_clustering, timer=timer,
+                                    subset_seed=seed)
 
     return fwd
 
@@ -244,12 +264,16 @@ def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
 
     def step(arrays, bn_momentum=0.1) -> Dict[str, torch.Tensor]:
         model.train()
+        # the embed family's subsets are drawn from the count of
+        # mini-batches taken, as the JAX step passes ``state.step``
+        count = int(optimizer.param_groups[0].get("calls", 0))
         with torch.no_grad(), _phase(timer, "hierarchy"):
             db = canonicalize(*arrays, device=dev)
             hier = build_hierarchy(db.grid, cfg.num_down, device=dev)
         for p in params:
             p.grad = None
-        out = panoptic_forward(cfg, model, db, hier, with_clustering, bn_momentum, timer)
+        out = panoptic_forward(cfg, model, db, hier, with_clustering, bn_momentum, timer,
+                               subset_seed=count)
         with _phase(timer, "losses"):
             total, losses = panoptic_losses(cfg, out, db.y, db.vote_label, db.instance_labels,
                                             db.instance_mask, db.grid.batch, db.grid.mask, cw)

@@ -322,8 +322,9 @@ class Trainer:
         inst_metrics: List[tuple] = []
         ap_meter = InstanceAPMeter()
         scan_offset = 0
-        for vb in self._val_batches(num_batches):
-            db, out = fwd(batch_arrays(vb))
+        for bi, vb in enumerate(self._val_batches(num_batches)):
+            # the embed family's subsets: a counter per (epoch, batch)
+            db, out = fwd(batch_arrays(vb), subset_seed=epoch * 100003 + bi)
             fetch = {"mask": db.grid.mask, "y": db.y, "pred": out.semantic_logits.argmax(-1),
                      "inst": db.instance_labels, "batch": db.grid.batch}
             if self.visualizer is not None:

@@ -86,8 +86,28 @@
    (``models=panoptic/area4_ablation_19``): a quarter of the forest in f32,
    kernels against plain versions, then the whole forest in bf16 at g = 1
    and 2 ("setting I scene" lines). "settings summary" gathers them.
-9. Prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
-   kernel's launches per path, ``settings`` among them) and, last, the
+9. Drives the ninth path, the point backbones as shipped
+   (``conf/models/panoptic/kpconv.yaml``, ``kpconv_deform.yaml``,
+   ``pointnet2.yaml``: ``KPConvPaper``, ``KPConvPaper-Deform``,
+   ``PointNet2``; no sparse conv, no ScoreNet) on the flagship batch: per
+   backbone the f32 forward with the kernels against the plain versions
+   (``main_path_f32``'s tolerances), 3 bf16 eval forwards (median ms,
+   phases with the radius queries apart, launches, peak memory) and 3
+   prepare + 2 full bf16 train steps, B, B's tables and C launched and A,
+   dX and D not; the share of query rows the cell cap truncated, per
+   radius query ("<model> cell cap", logged, not gated); one f32 full step
+   of ``KPConvPaper-Deform`` with the kernels and one with the plain
+   versions (losses within 1e-4, ``fitting_loss`` and ``repulsion_loss``
+   finite and > 0, gradients within 2e-2 of max |g|);
+   ``KPConvPaper``'s scene through the eval CLI (a quarter in f32 against
+   the plain versions, the whole forest in bf16 at g = 2); and
+   ``KPConvPaper-Deform`` through the train CLI on the forest, 2 epochs of
+   4 steps ("KPConvPaper-Deform trainer epoch" lines,
+   ``chiprun_out/point_trainer.json``). "point backbones summary" gathers
+   them.
+10. Prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
+   kernel's launches per path, ``settings`` and ``point_backbones`` among
+   them) and, last, the
    ``{"ok": true, "device": {...}}`` line. Every conv record goes to
    ``chiprun_out/conv_shapes.json``.
 
@@ -645,6 +665,50 @@ def cluster_kernels(cfg):
             + (["C"] if cfg.use_meanshift else []))
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (``index_add_`` and the gathers'
+    backward without atomics), so that two f32 runs of a point backbone
+    differ only where the kernels differ: its GEMMs and reductions leave
+    no rounding to the order of atomic adds, which the deformable KPConv
+    amplifies past the checks' tolerances. Ops without a deterministic
+    version warn instead of raising."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def conv_kernels(cfg, backward: bool = False):
+    """A (and in a train step A's dX and D) where the backbone is a sparse
+    UNet; a point backbone launches none of them."""
+    if cfg.is_point_backbone:
+        return []
+    return ["A", "A_dx", "D"] if backward else ["A"]
+
+
+@contextlib.contextmanager
+def radius_query_phase(timer):
+    """Time each radius query of a point backbone as a phase of its own
+    (``radius_queries``, nested in ``backbone_heads``)."""
+    from panopticsegforlargescalepointcloud_tpu_torch.models import point_backbones
+
+    fn0 = point_backbones.radius_query
+
+    def fn(*args, **kwargs):
+        with timer("radius_queries"):
+            return fn0(*args, **kwargs)
+
+    point_backbones.radius_query = fn
+    try:
+        yield
+    finally:
+        point_backbones.radius_query = fn0
+
+
 def check_output(cfg, db, out):
     import torch
 
@@ -765,13 +829,15 @@ def main_path_bf16(cfg, arrays, seed: int, repeats: int, hier_overflow):
     return launches, fails
 
 
-def train_step_f32(cfg32, arrays, seed: int):
+def train_step_f32(cfg32, arrays, seed: int, tag: str = "train step f32 kernel vs plain",
+                   grads_file: str = "train_f32_grads.json"):
     """One f32 full train step with the kernels and one with the plain
     versions, from the same weights: losses, every gradient and the
     proposals of the train-mode forward must agree. A third step, plain,
     from input features moved by about one f32 ulp, measures how far f32
     rounding alone moves the gradients: the backward runs through 35
-    train-mode BN layers at 131,072 rows and is ill-conditioned."""
+    train-mode BN layers at 131,072 rows and is ill-conditioned. Returns
+    (failures, {loss term: (kernels, plain)})."""
     import numpy as np
     import torch
 
@@ -822,7 +888,7 @@ def train_step_f32(cfg32, arrays, seed: int):
         # and the kernels round differently in each of 90 convs
         if not (bool(torch.isfinite(a).all()) and stats[n]["max_rel"] <= 2e-2):
             fails.append(f"f32 train step grad {n}: {stats[n]}")
-    with open(os.path.join(OUT_DIR, "train_f32_grads.json"), "w") as fh:
+    with open(os.path.join(OUT_DIR, grads_file), "w") as fh:
         json.dump(stats, fh, indent=0)
     summary = {}
     for key in ("max_rel", "nudged_max_rel"):
@@ -832,10 +898,10 @@ def train_step_f32(cfg32, arrays, seed: int):
     same = float((kp.prop_id == pp.prop_id).float().mean())
     if same < 0.999:
         fails.append(f"f32 train step membership rows identical {same} < 0.999")
-    log("train step f32 kernel vs plain", json.dumps(dict(
+    log(tag, json.dumps(dict(
         losses=losses, grads_over_max=summary, membership_rows_identical=same,
         valid_proposals=int(kp.prop_valid.sum()))))
-    return fails
+    return fails, losses
 
 
 def train_steps_bf16(cfg, arrays, seed: int, n_prepare: int = 5, n_full: int = 3,
@@ -886,9 +952,12 @@ def train_steps_bf16(cfg, arrays, seed: int, n_prepare: int = 5, n_full: int = 3
             last_metrics=metrics[-1],
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         )
-        need = ["A", "A_dx", "D"] + (cluster_kernels(cfg) if clustering else [])
+        need = conv_kernels(cfg, backward=True) + (cluster_kernels(cfg) if clustering else [])
         fails += [f"kernel {k} not launched in bf16 {phase} step {j}"
                   for j, counts in enumerate(per_step) for k in need if counts[k] <= 0]
+        fails += [f"kernel {k} launched {counts[k]} times in bf16 {phase} step {j}"
+                  for j, counts in enumerate(per_step) for k in ("A", "A_dx", "D")
+                  if k not in need and counts[k] != 0]
         fails += [f"kernel C launched {counts['C']} times in bf16 {phase} step {j} (> 2)"
                   for j, counts in enumerate(per_step) if counts["C"] > 2]
     launches = read_counts()
@@ -1063,7 +1132,7 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2), models=None, tag: str = "scen
         ev, run_kwargs, _, _ = build_evaluator(args)
         setup_s = time.perf_counter() - t0
         if launches is None:
-            launches = {k: 0 for k in ["A"] + cluster_kernels(ev.pcfg)}
+            launches = {k: 0 for k in conv_kernels(ev.pcfg) + cluster_kernels(ev.pcfg)}
         out = os.path.join(tmp, f"bf16_{models}_g{g}")
         ev.run(out_dir=out, **run_kwargs)  # warm
         torch.cuda.synchronize()
@@ -1084,6 +1153,8 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2), models=None, tag: str = "scen
             launches[k] += counts[k]
             if counts[k] <= 0:
                 fails.append(f"kernel {k} not launched in the {tag} bf16 at g={g}")
+        if "A" not in launches and counts["A"] != 0:
+            fails.append(f"kernel A launched {counts['A']} times in the {tag} bf16 at g={g}")
         if counts["C"] > 2 * -(-tiles // g):
             fails.append(f"kernel C launched {counts['C']} times in the {tag} bf16 at g={g} "
                          f"(> 2 per dispatch)")
@@ -1165,11 +1236,12 @@ def captured(module, name: str, found: list):
         setattr(module, name, fn0)
 
 
-def setting_forward(cfg, arrays, seed: int, name: str, repeats: int = 3):
+def setting_forward(cfg, arrays, seed: int, name: str, repeats: int = 3, tag=None):
     """One setting's bf16 eval forward at the flagship's width: the launches
     of one run (counts set to 0 just before it, read just after; the region
     growing and mean-shift operands recorded), then ``repeats`` runs timed
-    whole and ``repeats`` with a phase split."""
+    whole and ``repeats`` with a phase split (a point backbone's radius
+    queries a phase of their own)."""
     import torch
 
     from panopticsegforlargescalepointcloud_tpu_torch.bench_cluster import (
@@ -1191,13 +1263,13 @@ def setting_forward(cfg, arrays, seed: int, name: str, repeats: int = 3):
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    tag = f"setting {name}"
-    need = ["A"] + cluster_kernels(cfg)
+    tag = tag or f"setting {name}"
+    need = conv_kernels(cfg) + cluster_kernels(cfg)
     fails = [f"{tag}: {m}" for m in check_output(cfg, db, out)]
     fails += [f"{tag}: kernel {k} not launched on the eval forward" for k in need
               if launches[k] <= 0]
     fails += [f"{tag}: kernel {k} launched {launches[k]} times on the eval forward"
-              for k in ("B", "C", "A_dx", "D") if k not in need and launches[k] != 0]
+              for k in ("A", "B", "C", "A_dx", "D") if k not in need and launches[k] != 0]
     if launches["C"] > 1:
         fails.append(f"{tag}: kernel C launched {launches['C']} times (one mean-shift run)")
     whole, phased = [], []
@@ -1209,7 +1281,9 @@ def setting_forward(cfg, arrays, seed: int, name: str, repeats: int = 3):
         whole.append((time.perf_counter() - t0) * 1e3)
     for _ in range(repeats):
         timer = PhaseTimer()
-        make_eval_forward(cfg, model, timer=timer)(arrays)
+        with (radius_query_phase(timer) if cfg.is_point_backbone
+              else contextlib.nullcontext()):
+            make_eval_forward(cfg, model, timer=timer)(arrays)
         phased.append(timer.ms)
     rec = dict(ms_per_forward=whole, ms_median=statistics.median(whole), phases_ms=phased,
                launches_per_forward=launches, peak_mem_gib=peak,
@@ -1531,6 +1605,209 @@ def trainer_path(tmp: str):
     return launches, res, fails
 
 
+# ------------------------------------------------------------- point backbones
+
+
+def cell_cap_shares(cfg, arrays):
+    """Per radius query of ``cfg``'s point backbone on the flagship batch:
+    the share of valid query rows whose 27-cell scan ``point_cell_cap``
+    truncated (a logged diagnostic: does the shipped cap bind?)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster.neighbors import (
+        cell_cap_truncated,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.models.pointgroup3heads import (
+        make_backbone,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.models.point_backbones import (
+        level_positions,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hierarchy
+    from panopticsegforlargescalepointcloud_tpu_torch.train import canonicalize
+
+    with torch.no_grad():
+        db = canonicalize(*arrays)
+        hier = build_hierarchy(db.grid, cfg.num_down)
+        ps, masks = level_positions(db.pos, hier)
+        batches = [g.batch for g in hier.grids]
+        net = make_backbone(cfg)
+        queries = []  # (label, query level, support level, radius)
+        if cfg.backbone == "kpconv":
+            for lvl in range(cfg.point_levels + 1):
+                queries.append((f"L{lvl} self", lvl, lvl, net.radius(lvl)))
+                if lvl < cfg.point_levels:
+                    queries.append((f"L{lvl + 1} from L{lvl}", lvl + 1, lvl, net.radius(lvl)))
+        else:
+            for lvl in range(cfg.point_levels):
+                for r in getattr(net, f"sa{lvl}").radii:
+                    queries.append((f"SA L{lvl + 1} from L{lvl}", lvl + 1, lvl, r))
+                queries.append((f"FP L{lvl} from L{lvl + 1}", lvl, lvl + 1,
+                                getattr(net, f"fp{lvl}").radius))
+        out = {}
+        for label, q, sup, r in queries:
+            n = cell_cap_truncated(ps[q], batches[q], masks[q], ps[sup], batches[sup],
+                                   masks[sup], radius=r, cell_cap=cfg.point_cell_cap)
+            rows = int(masks[q].sum())
+            out[f"{label} r={r:.3g}"] = dict(rows=rows, truncated=int(n),
+                                              share=int(n) / max(rows, 1))
+    return out
+
+
+def point_trainer_path(tmp: str):
+    """``KPConvPaper-Deform`` through ``cli/train.py`` on the forest (train:
+    the whole scene; val: its quarter): 2 epochs of 4 steps
+    (``samples_per_epoch`` 16, ``prepare_epoch`` 1), a full-split
+    validation after each. Every logged loss finite, the regularizers
+    ``fitting_loss`` and ``repulsion_loss`` among them and > 0; one
+    ``metrics.jsonl`` line per epoch; B (and its tables) and C in every
+    full step, A, dX and D in none. Counts are reset just before the run
+    and read just after it."""
+    from panopticsegforlargescalepointcloud_tpu_torch.cli import train as cli_train
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import write_forest_scene
+
+    train_ply, val_ply = os.path.join(tmp, "pb_train.ply"), os.path.join(tmp, "pb_val.ply")
+    write_forest_scene(train_ply)
+    write_forest_scene(val_ply, quarter=True)
+    run_dir = os.path.join(tmp, "run_kpconv_deform")
+    args = [f"data.files.train=[{train_ply}]", f"data.files.val=[{val_ply}]",
+            f"checkpoint_dir={run_dir}", "models=panoptic/kpconv_deform",
+            "model_name=KPConvPaper-Deform", "training.samples_per_epoch=16",
+            "models.KPConvPaper-Deform.prepare_epoch=1", "pretty_print=False",
+            "training.epochs=2"]
+    fails, res = [], {}
+    recorder = StepRecorder()
+    reset_counts()
+    with recorder.installed():
+        t0 = time.perf_counter()
+        trainer = cli_train.main(args)
+        res["train_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    spe = trainer.steps_per_epoch
+    lines, rows = epoch_rows(run_dir, recorder.calls, spe)
+    for row in rows:
+        row.update(fitting_loss=lines[row["epoch"] - 1].get("train_fitting_loss"),
+                   repulsion_loss=lines[row["epoch"] - 1].get("train_repulsion_loss"))
+        log("KPConvPaper-Deform trainer epoch", json.dumps(row))
+    if len(lines) != 2:
+        fails.append(f"point trainer: metrics.jsonl has {len(lines)} lines for 2 epochs")
+    for line in lines:
+        bad = [k for k, v in line.items() if k.startswith("train_") and not math.isfinite(v)]
+        if bad:
+            fails.append(f"point trainer: non-finite {bad} at step {line['step']}")
+        for k in ("train_fitting_loss", "train_repulsion_loss"):
+            if not line.get(k, 0) > 0:
+                fails.append(f"point trainer: {k} {line.get(k)} at step {line['step']}")
+    for i, c in enumerate(recorder.calls):
+        need = ["B", "B_keys", "B_blocks", "B_cands", "C"] if c["phase"] == "full" else []
+        fails += [f"point trainer: kernel {k} not launched in step {i} ({c['phase']})"
+                  for k in need if c["launches"][k] <= 0]
+        fails += [f"point trainer: kernel {k} launched in step {i}" for k in ("A", "A_dx", "D")
+                  if c["launches"][k] != 0]
+    phases = [c["phase"] for c in recorder.calls]
+    if phases != ["prepare"] * spe + ["full"] * spe:
+        fails.append(f"point trainer: step phases {phases}")
+    res.update(steps_per_epoch=spe, epochs=rows, launches=launches, steps=recorder.calls)
+    with open(os.path.join(OUT_DIR, "point_trainer.json"), "w") as fh:
+        json.dump(res, fh, indent=1)
+    return launches, res, fails
+
+
+def point_backbones_path(tmp: str, arrays, seed: int):
+    """The ninth path: the point backbones as shipped
+    (``conf/models/panoptic/kpconv.yaml``, ``kpconv_deform.yaml``,
+    ``pointnet2.yaml``) on the flagship batch (131,072 rows of
+    ``build_inputs``, 4 samples, the 0.12 m NPM3D data yaml, seeded
+    weights). Per backbone: the f32 forward with the kernels against the
+    plain versions (``main_path_f32``'s tolerances), 3 bf16 eval forwards
+    (median ms, phases with the radius queries apart, launches, peak
+    memory), 3 prepare + 2 full bf16 train steps, and the share of query
+    rows the cell cap truncated. Then one f32 full step of
+    ``KPConvPaper-Deform`` with the kernels and one with the plain
+    versions (the f32 comparisons under :func:`deterministic`);
+    ``KPConvPaper``'s scene through the eval CLI (a quarter in f32 against
+    the plain versions, the whole forest in bf16 at g = 2); and
+    ``KPConvPaper-Deform`` through the train CLI. B, B's tables and C must
+    launch where clustering runs, A, dX and D never. Returns (launches of
+    the path's counted runs, records, failures)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import (
+        POINT_BACKBONES,
+        flagship_config,
+    )
+
+    fails, res = [], {}
+    total = {k: 0 for k in kernels()}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    for models, name in POINT_BACKBONES.items():
+        cfg = flagship_config(num_samples=4, compute_dtype="bfloat16", models=models)
+        with deterministic():
+            fails += main_path_f32(dataclasses.replace(cfg, compute_dtype="float32"), arrays,
+                                   seed, tag=f"{name} f32 kernel vs plain")
+        rec, counts, _, _, f = setting_forward(cfg, arrays, seed, name, tag=name)
+        fails += f
+        add(counts)
+        launches, tres, f = train_steps_bf16(cfg, arrays, seed, n_prepare=3, n_full=2,
+                                             tag=f"{name} train steps bf16")
+        fails += f
+        add(launches)
+        shares = cell_cap_shares(cfg, arrays)
+        log(f"{name} cell cap", json.dumps(shares))
+        phases = rec["phases_ms"][-1]
+        res[name] = dict(
+            forward_ms=rec["ms_median"], forward_phases_ms=phases,
+            radius_query_share_of_backbone=(phases.get("radius_queries", 0.0)
+                                            / max(phases.get("backbone_heads", 0.0), 1e-9)),
+            prepare_ms=tres["prepare"]["ms_per_step_median"],
+            full_ms=tres["full"]["ms_per_step_median"],
+            launches_per_forward={k: v for k, v in counts.items() if v},
+            launches_per_full_step={k: v for k, v in
+                                    tres["full"]["launches_per_step"][-1].items() if v},
+            peak_mem_gib=dict(forward=rec["peak_mem_gib"],
+                              prepare=tres["prepare"]["peak_mem_gib"],
+                              full=tres["full"]["peak_mem_gib"]),
+            valid_proposals=rec["valid_proposals"], cluster_overflow=rec["cluster_overflow"],
+            cell_cap_truncated_share={k: v["share"] for k, v in shares.items()},
+            internal_losses={k: tres["full"]["last_metrics"][k] for k in
+                             ("fitting_loss", "repulsion_loss")
+                             if k in tres["full"]["last_metrics"]})
+        torch.cuda.empty_cache()
+    cfg32 = flagship_config(num_samples=4, compute_dtype="float32", models="kpconv_deform")
+    with deterministic():
+        f, losses = train_step_f32(cfg32, arrays, seed,
+                                   tag="KPConvPaper-Deform train step f32 kernel vs plain",
+                                   grads_file="kpconv_deform_f32_grads.json")
+    fails += f
+    for k in ("fitting_loss", "repulsion_loss"):
+        if not (k in losses and all(math.isfinite(v) and v > 0 for v in losses[k])):
+            fails.append(f"KPConvPaper-Deform f32 step: {k} {losses.get(k)}")
+    res["deform_f32_step_losses"] = losses
+    torch.cuda.empty_cache()
+    fails += scene_f32(tmp, seed, models="kpconv", tag="KPConvPaper scene f32")
+    scene_launches, scene_res, f = scene_bf16(tmp, seed, groups=(2,), models="kpconv",
+                                              tag="KPConvPaper scene")
+    fails += f
+    add(scene_launches)
+    res["scene_kpconv"] = {g: {k: r[k] for k in ("s_per_scene", "points_per_s", "phases_s",
+                                                 "launches_per_scene", "instances", "meanPQ",
+                                                 "peak_mem_gib")}
+                           for g, r in scene_res.items()}
+    trainer_launches, tr_res, f = point_trainer_path(tmp)
+    fails += f
+    add(trainer_launches)
+    res["trainer_kpconv_deform"] = dict(
+        train_s=tr_res["train_s"],
+        s_per_step={r["phase"]: r["s_per_step_median"] for r in tr_res["epochs"]},
+        peak_mem_gib=max(r["peak_mem_gib"] or 0 for r in tr_res["epochs"]))
+    log("point backbones summary", json.dumps(res))
+    return total, res, fails
+
+
 def main() -> int:
     import torch
 
@@ -1591,7 +1868,7 @@ def main() -> int:
     eval_launches, f = main_path_bf16(cfg, arrays, seed=5, repeats=3,
                                       hier_overflow=hier.overflow.tolist())
     fails += f
-    fails += train_step_f32(cfg32, arrays, seed=5)
+    fails += train_step_f32(cfg32, arrays, seed=5)[0]
     train_launches, train_res, f = train_steps_bf16(cfg, arrays, seed=5)
     fails += f
     valid_rows = int(db.grid.mask.sum())
@@ -1622,7 +1899,10 @@ def main() -> int:
         log(f"trainer path done: {time.perf_counter() - t0:.1f} s")
         settings_launches, settings_res, f = settings_path(tmp, arrays, seed=5)
         fails += f
-    log(f"settings path done: {time.perf_counter() - t0:.1f} s")
+        log(f"settings path done: {time.perf_counter() - t0:.1f} s")
+        point_launches, _, f = point_backbones_path(tmp, arrays, seed=5)
+        fails += f
+    log(f"point backbones path done: {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(OUT_DIR, "conv_shapes.json"), "w") as fh:
         json.dump({"train_step": conv_rows, "eval_tile": tile_rows}, fh, indent=0)
 
@@ -1642,11 +1922,13 @@ def main() -> int:
         # counts of both main paths' counted runs; A's dX launches are its own
         # backward role of the same kernel
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
-                   "trainer": trainer_launches[key], "settings": settings_launches[key]}
+                   "trainer": trainer_launches[key], "settings": settings_launches[key],
+                   "point_backbones": point_launches[key]}
         if key == "A":
             by_path["train_steps_dx"] = train_launches["A_dx"]
             by_path["trainer_dx"] = trainer_launches["A_dx"]
             by_path["settings_dx"] = settings_launches["A_dx"]
+            by_path["point_backbones_dx"] = point_launches["A_dx"]
         if key in scene_launches:
             by_path["scene_eval"] = scene_launches[key]
         entries.append(dict(
@@ -1670,7 +1952,7 @@ def main() -> int:
         k, rec = ks[key], b_rec["tables"][part]
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
                    "scene_eval": scene_launches[key], "trainer": trainer_launches[key],
-                   "settings": settings_launches[key]}
+                   "settings": settings_launches[key], "point_backbones": point_launches[key]}
         entries.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,

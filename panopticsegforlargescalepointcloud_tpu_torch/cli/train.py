@@ -5,9 +5,11 @@
         model_name=PointGroup-PAPER training=treeins training.epochs=150 \\
         "data.files.train=[path/to/a.ply]" "data.files.val=[path/to/b.ply]" [device=cpu]
 
-``models=`` takes any model yaml of ``conf/models/panoptic`` without a
-point backbone: the paper's Settings I-V are ``area4_ablation_19``,
-``_14``, ``_15``, ``_3heads_5`` and ``_3heads_6``. Composes
+``models=`` takes any model yaml of ``conf/models/panoptic``: the paper's
+Settings I-V are ``area4_ablation_19``, ``_14``, ``_15``, ``_3heads_5`` and
+``_3heads_6``; the point backbones ``kpconv``, ``kpconv_deform`` and
+``pointnet2`` go with ``model_name=KPConvPaper``, ``KPConvPaper-Deform``
+and ``PointNet2``. Composes
 ``conf/config.yaml`` with the overrides, writes it to
 ``<run_dir>/config_composed.yaml`` and trains; the run directory holds the
 checkpoint ``model.pt`` and the run log ``metrics.jsonl``. It is

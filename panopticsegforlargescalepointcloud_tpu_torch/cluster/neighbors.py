@@ -1,10 +1,14 @@
-"""Cell hashing helpers for clustering (counterpart of the JAX package's
-``cluster/neighbors.py``: ``run_starts``, ``_shifted_cells`` and
-``cell_seed_labels``; the edge-list radius graph is not part of this slice).
+"""Cell hashing: clustering's helpers and the point backbones' radius
+queries (counterpart of the JAX package's ``cluster/neighbors.py``:
+``run_starts``, ``_shifted_cells``, ``cell_seed_labels`` and
+``radius_query``; the edge-list radius graph is not in the port yet).
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from ..ops.hashing import INVALID_KEY, BitLayout, pack_coords
@@ -13,23 +17,11 @@ _MAX_SAMPLES = 256
 
 
 def run_starts(sorted_keys: torch.Tensor, query_keys: torch.Tensor) -> torch.Tensor:
-    """``searchsorted(sorted_keys, q, side="left")`` via one stable co-sort
-    (queries first among equal keys, then a suffix min over table rows)."""
-    n = sorted_keys.shape[0]
-    shape = query_keys.shape
-    q = query_keys.reshape(-1)
-    m = q.shape[0]
-    dev = q.device
-    all_keys = torch.cat([q, sorted_keys])
-    tag = torch.cat([torch.full((m,), -1, dtype=torch.int64, device=dev),
-                     torch.arange(n, dtype=torch.int64, device=dev)])
-    order = torch.argsort(all_keys, stable=True)
-    stags = tag[order]
-    table_pos = torch.where(stags >= 0, stags, torch.full_like(stags, n))
-    nxt = torch.flip(torch.cummin(torch.flip(table_pos, [0]), dim=0).values, [0])
-    res = torch.empty_like(nxt)
-    res[order] = nxt
-    return res[:m].to(torch.int32).reshape(shape)
+    """``searchsorted(sorted_keys, q, side="left")``: the first table index
+    whose key is >= q (``len(sorted_keys)`` if none), int32 of the query's
+    shape. The JAX package co-sorts queries and table (binary search is
+    slow on the TPU); the card searches."""
+    return torch.searchsorted(sorted_keys, query_keys.contiguous(), side="left").to(torch.int32)
 
 
 def _shifted_cells(pos, batch, valid, radius, bits: BitLayout, num_ids: int = _MAX_SAMPLES):
@@ -66,3 +58,106 @@ def cell_seed_labels(pos, ids, valid, radius: float, bits: BitLayout,
     labels[order] = lab_sorted
     labels = labels.to(torch.int32)
     return torch.where(valid, labels, torch.full_like(labels, n))
+
+
+# Default cell-key layout of the radius queries: 9 bits per axis (512-cell
+# extents) leave 5 bits, 31 distinct batch ids.
+DEFAULT_CELL_BITS = BitLayout(9, 9, 9)
+
+# the 27 adjacent cells, z fastest
+_CELL_OFFSETS = np.stack(np.meshgrid(*([np.arange(-1, 2)] * 3), indexing="ij"),
+                         axis=-1).reshape(-1, 3).astype(np.int32)
+
+
+def _cell_scan(q_pos, q_ids, q_valid, s_pos, s_ids, s_valid, radius: float,
+               bits: BitLayout, num_ids: int):
+    """The support rows binned into cells of side ``radius``, sorted by
+    key (stable), and every query's 27 adjacent cell keys with the sorted
+    position where each cell's run starts. Cells are shifted by the per-id
+    minimum over query ∪ support, so one sample's two sets share a frame.
+    Returns (q_keys [Q, 27], sorted support keys, order, start [Q, 27])."""
+    nq = q_pos.shape[0]
+    dev = q_pos.device
+    inv = 1.0 / radius
+    q_cell = torch.floor(q_pos * inv).to(torch.int32)
+    s_cell = torch.floor(s_pos * inv).to(torch.int32)
+    big = 1 << 24
+    qi = q_ids.clamp(0, num_ids - 1).long()
+    si = s_ids.clamp(0, num_ids - 1).long()
+    cmin = torch.full((num_ids, 3), big, dtype=torch.int32, device=dev)
+    for ids, cell, valid in ((qi, q_cell, q_valid), (si, s_cell, s_valid)):
+        cmin.scatter_reduce_(0, ids[:, None].expand(-1, 3),
+                             torch.where(valid[:, None], cell, torch.full_like(cell, big)),
+                             reduce="amin", include_self=True)
+    half = torch.tensor([1 << (bits.bx - 1), 1 << (bits.by - 1), 1 << (bits.bz - 1)],
+                        dtype=torch.int32, device=dev)
+    q_cell = q_cell - cmin[qi] - half
+    s_cell = s_cell - cmin[si] - half
+    s_keys = pack_coords(s_ids, s_cell, bits, extra_invalid=~s_valid)
+    order = torch.argsort(s_keys, stable=True)
+    skeys = s_keys[order]
+    offs = torch.from_numpy(_CELL_OFFSETS).to(dev)
+    qc = q_cell[:, None, :] + offs[None, :, :]  # [Q, 27, 3]
+    q_keys = pack_coords(q_ids[:, None].expand(nq, 27).reshape(-1), qc.reshape(-1, 3), bits,
+                         extra_invalid=(~q_valid)[:, None].expand(nq, 27).reshape(-1))
+    q_keys = q_keys.reshape(nq, 27)
+    return q_keys, skeys, order, run_starts(skeys, q_keys).long()
+
+
+def radius_query(q_pos: torch.Tensor, q_ids: torch.Tensor, q_valid: torch.Tensor,
+                 s_pos: torch.Tensor, s_ids: torch.Tensor, s_valid: torch.Tensor,
+                 radius: float, k: int = 16, cell_cap: int = 16,
+                 bits: BitLayout = DEFAULT_CELL_BITS, num_ids: int = _MAX_SAMPLES
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-set fixed-K radius search: for each query row, up to ``k``
+    nearest *support* rows within ``radius`` with the same id. Every query
+    scans its 27 adjacent cells (side ``radius``), at most ``cell_cap``
+    support rows a cell in sorted order: rows past the cap are invisible
+    as candidates. Among equal distances the candidate scanned first comes
+    first, as ``lax.top_k`` orders them: the selection sorts the distance's
+    bits and the candidate's slot as one key.
+
+    Returns (idx [Q, k] int32 into the support rows, -1 padding; dist2 [Q, k]
+    f32, +inf padding), nearest first."""
+    nq, ns = q_pos.shape[0], s_pos.shape[0]
+    dev = q_pos.device
+    q_keys, skeys, order, start = _cell_scan(q_pos, q_ids, q_valid, s_pos, s_ids, s_valid,
+                                             radius, bits, num_ids)
+    pos_s = s_pos[order]
+    slot = torch.arange(cell_cap, dtype=torch.int64, device=dev)
+    cand = torch.clamp(start[:, :, None] + slot, max=ns - 1)  # [Q, 27, cap]
+    in_cell = skeys[cand] == q_keys[:, :, None]
+    dist2 = None
+    for c in range(3):  # the squares summed in coordinate order
+        d = q_pos[:, c, None, None] - pos_s[:, c][cand]
+        dist2 = d * d if dist2 is None else dist2 + d * d
+    ok = in_cell & (dist2 <= radius * radius) & (q_keys[:, :, None] != INVALID_KEY)
+    m = 27 * cell_cap
+    dist2 = torch.where(ok, dist2, torch.full_like(dist2, float("inf"))).reshape(nq, m)
+    cand = torch.where(ok, cand, torch.zeros_like(cand)).reshape(nq, m)
+    kk = min(k, m)
+    # non-negative floats order as their bit patterns: (bits, slot) is a
+    # unique key, so the k smallest are one set in one order on any device
+    key = (dist2.view(torch.int32).long() << 32) | torch.arange(m, device=dev)
+    sel = torch.topk(key, kk, dim=1, largest=False, sorted=True).indices
+    dist2 = dist2.gather(1, sel)
+    idx = order[cand.gather(1, sel)].to(torch.int32)
+    idx = torch.where(torch.isfinite(dist2), idx, torch.full_like(idx, -1))
+    if kk < k:
+        idx = torch.cat([idx, idx.new_full((nq, k - kk), -1)], dim=1)
+        dist2 = torch.cat([dist2, dist2.new_full((nq, k - kk), float("inf"))], dim=1)
+    return idx, dist2
+
+
+def cell_cap_truncated(q_pos, q_ids, q_valid, s_pos, s_ids, s_valid, radius: float,
+                       cell_cap: int, bits: BitLayout = DEFAULT_CELL_BITS,
+                       num_ids: int = _MAX_SAMPLES) -> torch.Tensor:
+    """[] int64: the valid query rows of :func:`radius_query` for which
+    ``cell_cap`` hid a candidate, i.e. some of the 27 cells they scan holds
+    more than ``cell_cap`` support rows (a diagnostic: does the cap bind)."""
+    ns = s_pos.shape[0]
+    q_keys, skeys, _, start = _cell_scan(q_pos, q_ids, q_valid, s_pos, s_ids, s_valid,
+                                         radius, bits, num_ids)
+    past = start + cell_cap
+    over = (past < ns) & (skeys[past.clamp(max=ns - 1)] == q_keys) & (q_keys != INVALID_KEY)
+    return (over.any(dim=1) & q_valid).sum()

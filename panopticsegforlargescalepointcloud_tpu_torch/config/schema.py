@@ -142,7 +142,23 @@ def panoptic_config_from_yaml(
         w_score=float(lw.get("score_loss", 1.0)),
         w_embed=float(lw.get("embedding_loss", 1.0)),
         num_samples=tr.batch_size,
+        # the model yaml may pick the backbone ("kpconv", "pointnet2"); an
+        # explicit backbone=... other than the "paper" default overrides it
         backbone=(str(m.get("backbone", backbone)) if backbone == "paper" else backbone),
+        grid_size=grid,
+        point_levels=int(m.get("point_levels", 4)),
+        kp_base_channels=int(m.get("kp_base_channels", 64)),
+        kp_num_kernel_points=int(m.get("kp_num_kernel_points", 15)),
+        kp_sigma=float(m.get("kp_sigma", 1.0)),
+        kp_max_neighbors=int(m.get("kp_max_neighbors", 16)),
+        kp_deformable=bool(m.get("kp_deformable", False)),
+        kp_modulated=bool(m.get("kp_modulated", False)),
+        kp_loss_mode=str(m.get("kp_loss_mode", "fitting")),
+        lambda_internal_losses=float(m.get("lambda_internal_losses", 0.1)),
+        pn2_base_channels=int(m.get("pn2_base_channels", 32)),
+        pn2_radius_scale=float(m.get("pn2_radius_scale", 2.5)),
+        pn2_nsample=int(m.get("pn2_nsample", 16)),
+        point_cell_cap=int(m.get("point_cell_cap", 16)),
     )
     if m.get("scorer_bits"):
         kwargs["scorer_bits"] = tuple(int(b) for b in m["scorer_bits"])

@@ -47,11 +47,25 @@ SETTINGS = {
 }
 
 
+# the point-backbone yamls (conf/models/panoptic) -> their model names; every
+# other model yaml names its model PointGroup-PAPER
+POINT_BACKBONES = {
+    "kpconv": "KPConvPaper",  # KPConv, rigid kernel points
+    "kpconv_deform": "KPConvPaper-Deform",  # deformable past the stem
+    "pointnet2": "PointNet2",  # PointNet++ multi-scale grouping
+}
+
+
+def model_name(models: str) -> str:
+    """The model name of the model yaml ``models``."""
+    return POINT_BACKBONES.get(models, "PointGroup-PAPER")
+
+
 def _flagship_yaml(models: str = SETTINGS["IV"]):
     return load_config(CONF_DIR, [
         "data=panoptic/npm3d-sparseconv_grid_012_R_16_cylinder_area1",
         f"models=panoptic/{models}",
-        "model_name=PointGroup-PAPER",
+        f"model_name={model_name(models)}",
         "training=npm3d",
         "lr_scheduler=exponential",
     ])
@@ -61,7 +75,8 @@ def flagship_config(num_samples: int = 4, compute_dtype: str = "bfloat16",
                     models: str = SETTINGS["IV"], **overrides) -> PanopticConfig:
     """The flagship's data, training and width with the model yaml
     ``models`` (a name of ``conf/models/panoptic``; ``SETTINGS`` maps the
-    paper's settings to theirs)."""
+    paper's settings to theirs, ``POINT_BACKBONES`` the point backbones'
+    yamls to their model names)."""
     return panoptic_config_from_yaml(_flagship_yaml(models), num_samples=num_samples,
                                      compute_dtype=compute_dtype, **overrides)[0]
 
@@ -104,8 +119,8 @@ def serving_yaml(models=None):
     """``conf/eval.yaml`` composed with its defaults (the run config a
     serving checkpoint stores), with the model yaml ``models`` (a name of
     ``conf/models/panoptic``) in place of its default where given."""
-    return load_config(CONF_DIR, [f"models=panoptic/{models}"] if models else [],
-                       root="eval.yaml")
+    over = [f"models=panoptic/{models}", f"model_name={model_name(models)}"] if models else []
+    return load_config(CONF_DIR, over, root="eval.yaml")
 
 
 def write_forest_scene(path: str, seed: int = 0, quarter: bool = False) -> int:
@@ -142,15 +157,19 @@ def write_forest_scene(path: str, seed: int = 0, quarter: bool = False) -> int:
 
 def random_model(cfg: PanopticConfig, seed: int) -> PointGroup3HeadsNet:
     """The model with seeded random weights and non-trivial BN running
-    statistics (conv kernels normal with std sqrt(2 / (27 * Cout)), as the
-    reference's kaiming fan-out init)."""
+    statistics (conv kernels [K, Cin, Cout], sparse or kernel-point, normal
+    with std sqrt(2 / (K * Cout)), as the reference's kaiming fan-out init;
+    the deformable KPConv's offset kernels a tenth of that, so that the
+    kernel points move a fraction of the extent)."""
     gen = torch.Generator().manual_seed(seed)
     model = PointGroup3HeadsNet(cfg)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "kernel":
-                p.copy_(torch.randn(p.shape, generator=gen) * math.sqrt(2.0 / (27 * p.shape[2])))
+            if leaf in ("kernel", "offset_kernel"):
+                std = math.sqrt(2.0 / (p.shape[0] * p.shape[2]))
+                p.copy_(torch.randn(p.shape, generator=gen) * std
+                        * (0.1 if leaf == "offset_kernel" else 1.0))
             elif leaf == "weight":
                 p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(p.shape[1]))
             elif leaf == "scale":

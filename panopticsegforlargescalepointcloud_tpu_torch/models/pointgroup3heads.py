@@ -39,6 +39,7 @@ from .losses import (
 )
 from .modules import PointMLP
 from .plans import paper_backbone_plan, scorer_unet_plan, tiny_backbone_plan
+from .point_backbones import KPConvBackbone, PointNet2Backbone
 from .unet import SparseUNet
 
 # PointGroupEmbed strategy table (Setting I family), the JAX package's
@@ -125,7 +126,28 @@ class PanopticConfig:
     min_cluster_points: int = 100
     min_score: float = 0.5
     compute_dtype: str = "bfloat16"  # conv gather/GEMM precision (f32 accumulation)
-    backbone: str = "paper"  # "paper" (7 levels) | "tiny" (3 levels)
+    # "paper" (7-level sparse UNet) | "tiny" (3 levels) | "kpconv" (kernel-point
+    # conv UNet, reference KPConvPaper) | "pointnet2" (PointNet++ MSG UNet)
+    backbone: str = "paper"
+    # the point backbones (models/point_backbones.py): grid_size is the data
+    # voxel size in meters, level l's neighbourhoods scale with grid_size * 2^l
+    grid_size: float = 0.2
+    point_levels: int = 4  # strided levels of the point backbones
+    kp_base_channels: int = 64
+    kp_num_kernel_points: int = 15
+    kp_sigma: float = 1.0
+    kp_max_neighbors: int = 16
+    # deformable kernel points past the stem; their regularizers weigh into
+    # the loss by lambda_internal_losses
+    kp_deformable: bool = False
+    kp_modulated: bool = False
+    kp_loss_mode: str = "fitting"  # "fitting" (+ repulsion) | "permissive"
+    lambda_internal_losses: float = 0.1
+    pn2_base_channels: int = 32
+    pn2_radius_scale: float = 2.5
+    pn2_nsample: int = 16
+    # candidate budget per hash cell of the point backbones' radius queries
+    point_cell_cap: int = 16
     scorer_bits: Tuple[int, int, int] = (7, 7, 9)
 
     def __post_init__(self):
@@ -141,7 +163,7 @@ class PanopticConfig:
             unsupported.append(f"scorer_type={self.scorer_type!r}")
         if self.mask_supervise:
             unsupported.append("mask_supervise")
-        if self.backbone not in ("paper", "tiny"):
+        if self.backbone not in ("paper", "tiny", "kpconv", "pointnet2"):
             unsupported.append(f"backbone={self.backbone!r}")
         if unsupported:
             raise NotImplementedError(
@@ -160,7 +182,13 @@ class PanopticConfig:
         return min(t, n)
 
     @property
+    def is_point_backbone(self) -> bool:
+        return self.backbone in ("kpconv", "pointnet2")
+
+    @property
     def num_down(self) -> int:
+        if self.is_point_backbone:
+            return self.point_levels
         return 6 if self.backbone == "paper" else 2
 
     @property
@@ -244,21 +272,43 @@ class PanopticOutput(NamedTuple):
     scorer_overflow: Optional[torch.Tensor] = None
     # [] int32 thing rows past the clustering budgets
     cluster_overflow: Optional[torch.Tensor] = None
+    # the deformable KPConv's regularizers, summed per name (training mode)
+    internal_losses: Optional[Dict[str, torch.Tensor]] = None
+
+
+def make_backbone(cfg: PanopticConfig) -> nn.Module:
+    """The feature extractor ``cfg.backbone`` selects: [N, feat_dim] ->
+    [N, in_feat]."""
+    if cfg.backbone == "kpconv":
+        return KPConvBackbone(
+            cfg.feat_dim, num_levels=cfg.point_levels, base_channels=cfg.kp_base_channels,
+            out_nc=cfg.in_feat, grid_size=cfg.grid_size, sigma=cfg.kp_sigma,
+            num_kernel_points=cfg.kp_num_kernel_points, max_neighbors=cfg.kp_max_neighbors,
+            cell_cap=cfg.point_cell_cap, deformable=cfg.kp_deformable,
+            modulated=cfg.kp_modulated, loss_mode=cfg.kp_loss_mode,
+            compute_dtype=cfg.compute_dtype)
+    if cfg.backbone == "pointnet2":
+        return PointNet2Backbone(
+            cfg.feat_dim, num_levels=cfg.point_levels, base_channels=cfg.pn2_base_channels,
+            out_nc=cfg.in_feat, grid_size=cfg.grid_size, radius_scale=cfg.pn2_radius_scale,
+            nsample=cfg.pn2_nsample, cell_cap=cfg.point_cell_cap,
+            compute_dtype=cfg.compute_dtype)
+    plan_fn = paper_backbone_plan if cfg.backbone == "paper" else tiny_backbone_plan
+    return SparseUNet(**plan_fn(cfg.feat_dim, cfg.in_feat), compute_dtype=cfg.compute_dtype)
 
 
 class PointGroup3HeadsNet(nn.Module):
     """Backbone + 3 heads (each MLP([F, F], bias=False) -> Linear) + the UNet
     ScoreNet with its sigmoid head. Attribute names follow the flax model.
-    The embed family has no offset head; its ScoreNet weights exist as in
+    The embed family has no offset head; the ScoreNet weights exist as in
     the flax tree (whose init touches the scorer) even where no forward
     uses them (``use_score_net`` false, or the semantic-certainty score)."""
 
     def __init__(self, cfg: PanopticConfig):
         super().__init__()
         self.cfg = cfg
-        plan_fn = paper_backbone_plan if cfg.backbone == "paper" else tiny_backbone_plan
         f = cfg.in_feat
-        self.backbone = SparseUNet(**plan_fn(cfg.feat_dim, f), compute_dtype=cfg.compute_dtype)
+        self.backbone = make_backbone(cfg)
         self.semantic_mlp = PointMLP(f, (f,), use_bias=False)
         self.semantic_out = nn.Linear(f, cfg.num_classes)
         if cfg.has_offset:
@@ -269,10 +319,19 @@ class PointGroup3HeadsNet(nn.Module):
         self.scorer = SparseUNet(**scorer_unet_plan(f), compute_dtype=cfg.compute_dtype)
         self.scorer_head = nn.Linear(f, 1)
 
-    def backbone_heads(self, feats: torch.Tensor, hier: Hierarchy, momentum=0.1):
-        """``momentum``: BN momentum of the step (training mode only)."""
+    def backbone_heads(self, feats: torch.Tensor, hier: Hierarchy, momentum=0.1, *,
+                       pos: torch.Tensor):
+        """(features, semantic log-probs, offsets, embeddings, internal
+        losses). ``momentum``: BN momentum of the step (training mode
+        only); ``pos`` [N, 3]: the rows' positions, which the point
+        backbones take. The internal losses (the deformable KPConv's
+        regularizers) are empty but in training mode."""
         mask = hier.grids[0].mask
-        x = self.backbone(feats, hier, momentum)
+        internal: Dict[str, torch.Tensor] = {}
+        if self.cfg.is_point_backbone:
+            x, internal = self.backbone(feats, pos, hier, momentum)
+        else:
+            x = self.backbone(feats, hier, momentum)
         sem = torch.log_softmax(self.semantic_out(self.semantic_mlp(x, mask, momentum)), dim=-1)
         if self.cfg.has_offset:
             off = self.offset_out(self.offset_mlp(x, mask, momentum))
@@ -280,7 +339,7 @@ class PointGroup3HeadsNet(nn.Module):
             off = x.new_zeros((x.shape[0], 3))
         emb = self.embed_out(self.embed_mlp(x, mask, momentum))
         m = mask[:, None]
-        return x, sem, torch.where(m, off, 0.0), torch.where(m, emb, 0.0)
+        return x, sem, torch.where(m, off, 0.0), torch.where(m, emb, 0.0), internal
 
     def score(self, scorer_feats, scorer_hier: Hierarchy, prop_of_row, num_props: int,
               momentum=0.1):
@@ -569,9 +628,9 @@ def panoptic_losses(cfg: PanopticConfig, out: PanopticOutput, labels_y, vote_lab
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The total loss and its terms (the JAX package's ``panoptic_losses``
     without the mask branch): semantic NLL, offset norm and direction (with
-    an offset head), discriminative embedding, and with proposals and
-    scores the IoU loss of the scores; the overflow counters ride along as
-    f32 metrics."""
+    an offset head), discriminative embedding, with proposals and scores
+    the IoU loss of the scores, and the backbone's internal losses as
+    ``<name>_loss``; the overflow counters ride along as f32 metrics."""
     losses = {"semantic_loss": semantic_nll_loss(out.semantic_logits, labels_y, valid,
                                                  class_weights)}
     total = cfg.w_semantic * losses["semantic_loss"]
@@ -591,6 +650,11 @@ def panoptic_losses(cfg: PanopticConfig, out: PanopticOutput, labels_y, vote_lab
                                                  out.proposals.prop_valid,
                                                  cfg.min_iou_threshold, cfg.max_iou_threshold)
         total = total + cfg.w_score * losses["score_loss"]
+    for name, val in (out.internal_losses or {}).items():
+        # the deformable KPConv's regularizers (reference
+        # collect_internal_losses, lambda-weighted into the loss)
+        losses[f"{name}_loss"] = val
+        total = total + cfg.lambda_internal_losses * val
     if out.scorer_overflow is not None:
         losses["scorer_overflow"] = out.scorer_overflow.float()
     if out.cluster_overflow is not None:

@@ -1,15 +1,17 @@
 """Device-time breakdown of one flagship full train step on one GPU.
 
-    python3 -m panopticsegforlargescalepointcloud_tpu_torch.trace_train
+    python3 -m panopticsegforlargescalepointcloud_tpu_torch.trace_train [--models NAME]
 
 Runs the bf16 full train step (clustering, ScoreNet and score loss
-included) of the flagship configuration, from the JAX package's
+included) of the flagship configuration, or of the model yaml ``NAME`` of
+``conf/models/panoptic`` on the flagship's data (say ``kpconv``), from the JAX package's
 initializers, under ``torch.profiler``, after two warm-up steps, and prints
 one JSON line: the host wall time of the traced step, the device-busy time
 (union of GPU kernel intervals) and the idle share, the device time of each
 of the port's kernels (A, D and their second pass, B, C), and device time per
 kernel name, largest first. The full table goes to
-``chiprun_out/trace_train.txt``. Without a CUDA device it exits with code 2.
+``chiprun_out/trace_train.txt`` (``trace_train_<NAME>.txt``). Without a
+CUDA device it exits with code 2.
 """
 
 from __future__ import annotations
@@ -37,7 +39,9 @@ _FAMILIES = (
 )
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -45,10 +49,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("trace_train: no CUDA device", file=sys.stderr)
         return 2
-    from .flagship import build_inputs, flagship_config, flagship_training
+    from .flagship import SETTINGS, build_inputs, flagship_config, flagship_training
     from .train import make_train_step
 
-    cfg = flagship_config(num_samples=4, compute_dtype="bfloat16")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--models", default=SETTINGS["IV"])
+    models = ap.parse_args(argv).models
+    cfg = flagship_config(num_samples=4, compute_dtype="bfloat16", models=models)
     arrays = build_inputs()
     state, schedule, tc = flagship_training(cfg, seed=5)
     step = make_train_step(cfg, state.model, state.optimizer, schedule, True, tc.grad_clip_value)
@@ -73,6 +80,7 @@ def main() -> int:
             families[fam] = families.get(fam, 0.0) + us / 1e3
     res = dict(
         device=torch.cuda.get_device_name(0),
+        models=models,
         wall_ms_per_step=wall_ms,
         device_busy_ms_per_step=busy_ms if kernels else "not measured",
         device_idle_share=(1.0 - busy_ms / wall_ms) if kernels else "not measured",
@@ -84,7 +92,8 @@ def main() -> int:
     out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "trace_train.txt"), "w") as fh:
+    name = "trace_train.txt" if models == SETTINGS["IV"] else f"trace_train_{models}.txt"
+    with open(os.path.join(out_dir, name), "w") as fh:
         fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
     print(json.dumps(res), flush=True)
     return 0

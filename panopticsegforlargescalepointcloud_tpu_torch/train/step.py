@@ -26,6 +26,7 @@ from torch import nn
 from ..device import resolve_device
 from ..models.modules import ResBlock, SparseConv
 from ..models.norm import MaskedBatchNorm
+from ..models.point_backbones import KPConvDeformableLayer, KPConvLayer
 from ..models.pointgroup3heads import (
     PanopticConfig,
     PanopticOutput,
@@ -106,17 +107,20 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
     (``scorer_type`` "": the largest class probability of the members' mean
     log-probabilities) or none (``use_score_net`` false). The model's mode
     decides the BN statistics (``model.train()``: batch statistics, running
-    statistics updated with ``momentum``) and the caller's grad mode whether
+    statistics updated with ``momentum``, and the deformable KPConv's
+    regularizers in ``internal_losses``) and the caller's grad mode whether
     a graph is built. Clustering runs on detached heads; the scores keep
     their gradient to the backbone. ``subset_seed``: the embed family's
     subset counter (:func:`..models.pointgroup3heads.build_proposals`).
     ``timer(name)``, when given, returns a context manager wrapped around
     each phase."""
     with _phase(timer, "backbone_heads"):
-        x, sem, off, emb = model.backbone_heads(db.feats, hier, momentum)
+        x, sem, off, emb, internal = model.backbone_heads(db.feats, hier, momentum,
+                                                          pos=db.pos)
+    internal = internal or None
     if not with_clustering:
         return PanopticOutput(semantic_logits=sem, offset_logits=off, embed_logits=emb,
-                              backbone_feats=x)
+                              backbone_feats=x, internal_losses=internal)
     props, cluster_overflow = build_proposals(
         cfg, db.pos, off.detach(), emb.detach(), sem.detach(), db.grid.batch, db.grid.mask,
         timer=timer, subset_seed=subset_seed)
@@ -143,6 +147,7 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
         cluster_scores=scores,
         scorer_overflow=scorer_overflow,
         cluster_overflow=cluster_overflow,
+        internal_losses=internal,
     )
 
 
@@ -188,15 +193,24 @@ def _variance_scaling_(w: torch.Tensor, scale: float, fan: int, gen: torch.Gener
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX package's initializers, as distributions: sparse-conv kernels
     and the ResBlock 1x1 shortcuts variance-scaling 2.0 over fan-out,
-    truncated normal (``modules.py:conv_init``); the other dense layers
-    flax's lecun normal (1.0 over fan-in, truncated) with zero bias; BN scale
-    1, bias 0, statistics 0 and 1."""
+    truncated normal (``modules.py:conv_init``); KPConv kernels [P, Cin,
+    Cout] (and the deformable offsets') flax's xavier normal (1.0 over the
+    mean of fan-in P·Cin and fan-out P·Cout, truncated), offset bias 0; the
+    other dense layers flax's lecun normal (1.0 over fan-in, truncated) with
+    zero bias; BN scale 1, bias 0, statistics 0 and 1."""
     shortcuts = {id(m.Dense_0) for m in model.modules()
                  if isinstance(m, ResBlock) and hasattr(m, "Dense_0")}
     for m in model.modules():
         if isinstance(m, SparseConv):
             kvol, _, cout = m.kernel.shape
             _variance_scaling_(m.kernel, 2.0, kvol * cout, generator)
+        elif isinstance(m, (KPConvLayer, KPConvDeformableLayer)):
+            for w in m.parameters(recurse=False):
+                if w.dim() == 3:  # kernel, offset_kernel
+                    p, cin, cout = w.shape
+                    _variance_scaling_(w, 1.0, p * (cin + cout) / 2.0, generator)
+                else:  # offset_bias
+                    w.zero_()
         elif isinstance(m, nn.Linear):
             if id(m) in shortcuts:
                 _variance_scaling_(m.weight, 2.0, m.out_features, generator)

@@ -3,9 +3,11 @@
 The port's module names mirror the flax names, so the map is a rename:
 ``backbone/down_0/ConvBNReLU_0/SparseConv_0/kernel`` becomes
 ``backbone.down_0.ConvBNReLU_0.SparseConv_0.kernel``. Two kinds of leaf
-change form: a 2-D ``kernel`` (``nn.Dense``: heads, MLPs, 1x1 shortcuts) is
-stored [in, out] by flax and becomes the transposed ``weight`` of an
-``nn.Linear``; a 3-D ``kernel`` ([27, Cin, Cout] sparse conv) stays as is.
+change form: a 2-D ``kernel`` (``nn.Dense``: heads, MLPs, 1x1 shortcuts,
+also where it is applied to [Q, M, C] groups) is stored [in, out] by flax
+and becomes the transposed ``weight`` of an ``nn.Linear``; a 3-D ``kernel``
+([27, Cin, Cout] sparse conv, [P, Cin, Cout] KPConv) stays as is, as do the
+deformable KPConv's ``offset_kernel`` and ``offset_bias``.
 ``batch_stats`` ``mean``/``var`` become the MaskedBatchNorm buffers.
 :func:`flax_paths` is the inverse, for a state_dict or for gradients.
 """
@@ -16,6 +18,9 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+# parameter leaves that keep their flax form
+_LEAVES = ("kernel", "bias", "scale", "offset_kernel", "offset_bias")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -37,7 +42,7 @@ def params_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
         name = path[-1]
         if name == "kernel" and arr.ndim == 2:
             arr, name = arr.T, "weight"
-        elif name not in ("kernel", "bias", "scale"):
+        elif name not in _LEAVES:
             raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
         sd[".".join(path[:-1] + (name,))] = torch.from_numpy(np.array(arr, order="C", copy=True))
     for path, leaf in _flatten(batch_stats):
@@ -61,7 +66,7 @@ def flax_paths(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             if arr.ndim != 2:
                 raise KeyError(f"unexpected weight {name} of shape {arr.shape}")
             arr, path[-1] = arr.T, "kernel"
-        elif path[-1] not in ("kernel", "bias", "scale", "mean", "var"):
+        elif path[-1] not in _LEAVES + ("mean", "var"):
             raise KeyError(f"unexpected tensor {name}")
         out["/".join(path)] = np.ascontiguousarray(arr)
     return out

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX, flax, optax nor the
 JAX package; its entry points (the eval forward's, the train step's, the
-full-scene evaluator's and the eval CLI's here; the trainer's, the train and
-forward CLIs' and the learning run's in their own test files) default to the
+full-scene evaluator's, the eval CLI's and the point backbones' here; the
+trainer's, the train and forward CLIs' and the learning run's in their own
+test files) default to the
 GPU and raise without one; its kernel wrappers, the conv's backward and the conv probe's
 parts included, run their plain versions on CPU tensors without counting a
 launch."""
@@ -72,6 +73,8 @@ def test_package_import_leaves_jax_unloaded():
         "import panopticsegforlargescalepointcloud_tpu_torch.eval.visualizer\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.utils.debugging\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.utils.wandb_utils\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.models.point_backbones\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.ops.points\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -84,6 +87,8 @@ def test_package_import_leaves_jax_unloaded():
     assert "panopticsegforlargescalepointcloud_tpu_torch.ops.conv_parts" in mods
     assert "panopticsegforlargescalepointcloud_tpu_torch.data.datasets" in mods
     assert "panopticsegforlargescalepointcloud_tpu_torch.train.trainer" in mods
+    assert "panopticsegforlargescalepointcloud_tpu_torch.models.point_backbones" in mods
+    assert "panopticsegforlargescalepointcloud_tpu_torch.ops.points" in mods
 
 
 def _tiny_arrays():
@@ -146,6 +151,35 @@ def test_train_entry_points_default_to_gpu():
     step = make_train_step(cfg, state.model, state.optimizer, schedule, False, device="cpu")
     metrics = step(_tiny_arrays(), 0.1)
     assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
+
+
+@pytest.mark.parametrize("backbone", ["kpconv", "pointnet2"])
+def test_point_backbone_entry_points_default_to_gpu(backbone):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from panopticsegforlargescalepointcloud_tpu_torch.models import PanopticConfig
+    from panopticsegforlargescalepointcloud_tpu_torch.train import (
+        init_state,
+        make_eval_forward,
+        make_lr_schedule,
+        make_train_step,
+    )
+
+    cfg = PanopticConfig(num_classes=9, stuff_classes=(0, 7, 8), backbone=backbone,
+                         in_feat=8, num_samples=1, point_levels=2, kp_base_channels=8,
+                         pn2_base_channels=8, kp_deformable=True, use_score_net=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(cfg, torch.Generator().manual_seed(0))
+    state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_eval_forward(cfg, state.model)
+    schedule = make_lr_schedule("ExponentialLR", {}, 1e-3, 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, state.model, state.optimizer, schedule, False)
+    metrics = make_train_step(cfg, state.model, state.optimizer, schedule, False,
+                              device="cpu")(_tiny_arrays(), 0.1)
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert ("fitting_loss" in metrics) == (backbone == "kpconv")
 
 
 def test_evaluator_defaults_to_gpu(tmp_path):

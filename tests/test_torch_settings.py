@@ -5,8 +5,8 @@ on the embedding; all with the UNet ScoreNet): the eval forward and the
 first full train step. ``run_case`` and the ``check_*`` functions also hold
 the embed family's strategy table (``test_torch_embed_strategies.py``).
 Plus the configs: every cluster type of both families against the
-JAX package's ``PanopticConfig``, and the five ablation yamls through the
-port's loader.
+JAX package's ``PanopticConfig``, and the five ablation yamls and the three
+point-backbone yamls through the port's loader.
 
 Weights: the port's initializers, carried to the JAX side as a flax tree,
 random BN statistics. The JAX side runs as its own tests run it: f32,
@@ -284,8 +284,6 @@ def test_configs_build_as_jax(family, types, num_samples):
     (dict(mask_supervise=True), "mask_supervise"),
     (dict(scorer_type="encoder"), "encoder"),
     (dict(scorer_type="mlp"), "mlp"),
-    (dict(backbone="kpconv"), "kpconv"),
-    (dict(backbone="pointnet2"), "pointnet2"),
 ])
 def test_config_raises_only_for_missing_features(kw, what):
     with pytest.raises(NotImplementedError, match=what):
@@ -304,3 +302,18 @@ def test_ablation_yamls_build_as_jax(models):
     jcfg = j_config_from_yaml(j_load_config(CONF_DIR, over))[0]
     for f in cfg.__dataclass_fields__:
         assert getattr(cfg, f) == getattr(jcfg, f), f
+
+
+@pytest.mark.parametrize("models,name", [("kpconv", "KPConvPaper"),
+                                         ("kpconv_deform", "KPConvPaper-Deform"),
+                                         ("pointnet2", "PointNet2")])
+def test_point_backbone_yamls_build_as_jax(models, name):
+    """The point-backbone yamls compose to the JAX package's config, field
+    for field, with their own model names."""
+    over = [f"models=panoptic/{models}", f"model_name={name}"]
+    cfg = panoptic_config_from_yaml(load_config(CONF_DIR, over))[0]
+    jcfg = j_config_from_yaml(j_load_config(CONF_DIR, over))[0]
+    for f in cfg.__dataclass_fields__:
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    assert cfg.is_point_backbone and cfg.num_down == jcfg.num_down == cfg.point_levels
+    assert cfg.kp_deformable == (models == "kpconv_deform")

@@ -105,9 +105,31 @@
    4 steps ("KPConvPaper-Deform trainer epoch" lines,
    ``chiprun_out/point_trainer.json``). "point backbones summary" gathers
    them.
-10. Prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
-   kernel's launches per path, ``settings`` and ``point_backbones`` among
-   them) and, last, the
+10. Drives the tenth path, the flagship's variants (``flagship.VARIANTS``:
+   the mask head with its epoch gates open, the encoder and MLP scorers,
+   region growing's edge path on all rows and on the compacted rows) on the
+   flagship batch: per variant the f32 forward with the kernels against the
+   plain versions under deterministic algorithms (``main_path_f32``'s
+   tolerances, the edge path's proposals identical, the mask logits and the
+   filter's keep decisions), 3 bf16 eval forwards and 3 prepare + 2 full
+   bf16 train steps with launches (the scorers' convs on A; no B on the
+   edge path) and the edge path's truncated rows and iterations beside the
+   dense pull's ("<variant> forward bf16", "dense reference" lines); A, dX
+   and D at the scorers' own shapes ("<variant> scorer conv"); one f32 full
+   step kernels against plain for ``mask`` (a ground-free batch, heads that
+   give the mask loss members) and ``encoder`` (losses within 1e-4, the
+   mask loss > 0; gradients within 2e-2 of max |g| against a plain step
+   that takes the kernels' step's ReLU decisions where a BN output lies
+   within rounding of 0, each such flip within 1e-3 of the output's max,
+   counted in "bn_sign_flips"; a bias that feeds a train-mode BN directly,
+   whose gradient is 0 in exact arithmetic, within 1e-4 of the terms the
+   BN cancels in it); ``mask`` served by the
+   eval CLI (a quarter in f32 against plain, the forest in bf16 at g = 2)
+   and trained by the train CLI across its gates ("mask trainer" lines).
+   "scorers and edges summary" gathers them.
+11. Prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
+   kernel's launches per path, ``settings``, ``point_backbones`` and
+   ``scorers_edges`` among them) and, last, the
    ``{"ok": true, "device": {...}}`` line. Every conv record goes to
    ``chiprun_out/conv_shapes.json``.
 
@@ -660,8 +682,10 @@ class PhaseTimer:
 
 def cluster_kernels(cfg):
     """The kernels a forward with clustering of ``cfg`` launches besides A:
-    B and its tables where it grows regions, C where it runs mean shift."""
-    return ((["B", "B_keys", "B_blocks", "B_cands"] if cfg.rg_sources else [])
+    B and its tables where it grows regions by the dense pull (the edge
+    path launches none), C where it runs mean shift."""
+    return ((["B", "B_keys", "B_blocks", "B_cands"]
+             if cfg.rg_sources and cfg.rg_dense_enabled else [])
             + (["C"] if cfg.use_meanshift else []))
 
 
@@ -829,15 +853,93 @@ def main_path_bf16(cfg, arrays, seed: int, repeats: int, hier_overflow):
     return launches, fails
 
 
+@contextlib.contextmanager
+def bn_probe(model, record=None, align=None):
+    """Forward hooks on every MaskedBatchNorm of ``model`` (most feed a ReLU
+    gate, whose decision is the output's sign) for :func:`train_step_f32`. ``record`` collects each
+    call's output by module name, in call order. ``align`` (the ``record``
+    of another step): where this output and the recorded one lie on either
+    side of 0, the output takes the recorded value, moved by a detached
+    difference (this step's backward with the other step's gate
+    decisions). Yields {"flips": {"module[call]": (elements, largest move
+    / the output's max |value|)}, "bias_terms": {bias: per-channel scale}},
+    the scale of each bias that feeds a BN directly (a biased PointMLP
+    Dense): (|scale| / σ) · Σ |∂L/∂y| over the BN's valid rows, the size of
+    the terms that the BN's backward cancels in that bias's gradient."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.models.modules import PointMLP
+    from panopticsegforlargescalepointcloud_tpu_torch.models.norm import MaskedBatchNorm
+
+    fed = {}  # BN -> the bias that feeds it
+    for n, m in model.named_modules():
+        if isinstance(m, PointMLP):
+            fed.update({f"{n}.MaskedBatchNorm_{i}": f"{n}.Dense_{i}.bias"
+                        for i in range(len(m.channels))
+                        if getattr(m, f"Dense_{i}").bias is not None})
+    seen = {"flips": {}, "bias_terms": {}}
+    calls = {}
+
+    def hook(name):
+        def fn(mod, args, out):
+            i = calls[name] = calls.get(name, -1) + 1
+            if record is not None:
+                record.setdefault(name, []).append(out.detach().clone())
+            if name in fed and out.requires_grad:
+                x, m = args[0].detach().float(), args[1].float()[:, None]
+                cnt = m.sum().clamp(min=1.0)
+                mean = (x * m).sum(0) / cnt
+                gain = mod.scale.detach().abs() * torch.rsqrt(
+                    ((x - mean) ** 2 * m).sum(0) / cnt + mod.epsilon)
+                out.register_hook(lambda g: seen["bias_terms"].__setitem__(
+                    fed[name], gain * (g.float() * m).abs().sum(0)))
+            if align is None:
+                return None
+            ref = align[name][i]
+            flip = (ref > 0) != (out > 0)
+            if bool(flip.any()):
+                o = out.detach()
+                moved = (ref - o).abs()[flip].max() / o.abs().max().clamp(min=1e-30)
+                seen["flips"][f"{name}[{i}]"] = (int(flip.sum()), float(moved))
+            return out + torch.where(flip, ref - out, torch.zeros_like(out)).detach()
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules()
+               if isinstance(m, MaskedBatchNorm)]
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
 def train_step_f32(cfg32, arrays, seed: int, tag: str = "train step f32 kernel vs plain",
-                   grads_file: str = "train_f32_grads.json"):
+                   grads_file: str = "train_f32_grads.json", prepare=None,
+                   align_gates: bool = False):
     """One f32 full train step with the kernels and one with the plain
     versions, from the same weights: losses, every gradient and the
     proposals of the train-mode forward must agree. A third step, plain,
     from input features moved by about one f32 ulp, measures how far f32
     rounding alone moves the gradients: the backward runs through 35
-    train-mode BN layers at 131,072 rows and is ill-conditioned. Returns
-    (failures, {loss term: (kernels, plain)})."""
+    train-mode BN layers at 131,072 rows and is ill-conditioned.
+    ``prepare(model)``, where given, sets weights of the initialized model
+    before each step.
+
+    A bias that feeds a train-mode BN directly has a gradient that is 0 in
+    exact arithmetic, so its max |g| is rounding: it is held instead to
+    |g| <= 1e-4 of the terms that the BN cancels in it (:func:`bn_probe`),
+    in both steps.
+
+    ``align_gates``: a fourth step, plain, with the kernels' step's ReLU
+    decisions (:func:`bn_probe`): a BN output on the other side of 0 than
+    in the kernels' step takes that step's value, and every such flip must
+    lie within the forward's tolerance, 1e-3 of the output's max |value|
+    (a gate within rounding of 0: a flipped gate passes a row's gradient in
+    one step and not in the other, and train-mode BN's backward can carry
+    that far into a weight gradient whose terms cancel). The gradients are
+    then held against this step; the plain step's distance is logged
+    beside it.
+    Returns (failures, {loss term: (kernels, plain)})."""
     import numpy as np
     import torch
 
@@ -853,10 +955,16 @@ def train_step_f32(cfg32, arrays, seed: int, tag: str = "train step f32 kernel v
     noise = np.random.default_rng(seed).standard_normal(arrays[3].shape)
     nudged[3] = (arrays[3] * (1.0 + 2.0**-23 * noise)).astype(np.float32)
     runs = {}
-    for name, ctx, arr in (("kernels", contextlib.nullcontext, arrays),
-                           ("plain", plain_kernels, arrays),
-                           ("plain_nudged", plain_kernels, tuple(nudged))):
+    record = {} if align_gates else None
+    probes = [("kernels", contextlib.nullcontext, arrays, dict(record=record)),
+              ("plain", plain_kernels, arrays, {}),
+              ("plain_nudged", plain_kernels, tuple(nudged), {})]
+    if align_gates:
+        probes.append(("plain_aligned", plain_kernels, arrays, dict(align=record)))
+    for name, ctx, arr, hooks in probes:
         state, schedule, tc = flagship_training(cfg32, seed)
+        if prepare is not None:
+            prepare(state.model)
         with ctx():
             with torch.no_grad():
                 db = canonicalize(*arr)
@@ -865,10 +973,14 @@ def train_step_f32(cfg32, arrays, seed: int, tag: str = "train step f32 kernel v
                 props = panoptic_forward(cfg32, twin, db, hier, True, state.bn_momentum).proposals
             step = make_train_step(cfg32, state.model, state.optimizer, schedule, True,
                                    tc.grad_clip_value)
-            metrics = step(arr, state.bn_momentum)
+            with bn_probe(state.model, **hooks) as seen:
+                metrics = step(arr, state.bn_momentum)
         torch.cuda.synchronize()
-        runs[name] = (metrics, {n: p.grad for n, p in state.model.named_parameters()}, props)
-    (km, kg, kp), (pm, pg, pp), (_, ng, _) = runs["kernels"], runs["plain"], runs["plain_nudged"]
+        runs[name] = (metrics, {n: p.grad for n, p in state.model.named_parameters()}, props,
+                      seen)
+    record = None
+    (km, kg, kp, kseen), (pm, pg, pp, pseen) = runs["kernels"], runs["plain"]
+    ng = runs["plain_nudged"][1]
     fails = []
     losses = {}
     for k in pm:
@@ -877,21 +989,35 @@ def train_step_f32(cfg32, arrays, seed: int, tag: str = "train step f32 kernel v
         # f32 through 90 convs and their backward, summed in other orders
         if not (math.isfinite(a) and abs(a - b) <= 1e-4 * max(abs(b), 1.0)):
             fails.append(f"f32 train step {k}: kernels {a} vs plain {b}")
+    flips = runs["plain_aligned"][3]["flips"] if align_gates else {}
+    fails += [f"f32 train step: {m} flips a gate by {moved} of its max |value| (> 1e-3)"
+              for m, (_, moved) in flips.items() if moved > 1e-3]
+    ref = runs["plain_aligned"][1] if align_gates else pg
     stats = {}
     for n, b in pg.items():
         a = kg[n]
         scale = float(b.abs().max())
         stats[n] = dict(max_rel=float((a - b).abs().max()) / max(scale, 1e-30),
                         nudged_max_rel=float((ng[n] - b).abs().max()) / max(scale, 1e-30))
-        # 2e-2 of the tensor's max |g|: the nudged plain step moves single
-        # gradients by up to about 1e-2 (measured here, "nudged_max_rel"),
-        # and the kernels round differently in each of 90 convs
-        if not (bool(torch.isfinite(a).all()) and stats[n]["max_rel"] <= 2e-2):
+        if align_gates:
+            stats[n]["aligned_max_rel"] = (float((a - ref[n]).abs().max())
+                                           / max(float(ref[n].abs().max()), 1e-30))
+        if n in kseen["bias_terms"]:
+            over = [float((g.abs() / seen["bias_terms"][n].clamp(min=1e-30)).max())
+                    for g, seen in ((a, kseen), (b, pseen))]
+            stats[n]["over_bn_terms"] = over
+            ok = max(over) <= 1e-4
+        else:
+            # 2e-2 of the tensor's max |g|: the nudged plain step moves single
+            # gradients by up to about 1e-2 (measured here, "nudged_max_rel"),
+            # and the kernels round differently in each of 90 convs
+            ok = stats[n]["aligned_max_rel" if align_gates else "max_rel"] <= 2e-2
+        if not (bool(torch.isfinite(a).all()) and ok):
             fails.append(f"f32 train step grad {n}: {stats[n]}")
     with open(os.path.join(OUT_DIR, grads_file), "w") as fh:
         json.dump(stats, fh, indent=0)
     summary = {}
-    for key in ("max_rel", "nudged_max_rel"):
+    for key in ("max_rel", "nudged_max_rel") + (("aligned_max_rel",) if align_gates else ()):
         vals = sorted(v[key] for v in stats.values())
         worst = max(stats, key=lambda n: stats[n][key])
         summary[key] = dict(median=vals[len(vals) // 2], max=vals[-1], worst=worst)
@@ -899,8 +1025,9 @@ def train_step_f32(cfg32, arrays, seed: int, tag: str = "train step f32 kernel v
     if same < 0.999:
         fails.append(f"f32 train step membership rows identical {same} < 0.999")
     log(tag, json.dumps(dict(
-        losses=losses, grads_over_max=summary, membership_rows_identical=same,
-        valid_proposals=int(kp.prop_valid.sum()))))
+        losses=losses, grads_over_max=summary, bn_sign_flips=flips,
+        zero_gradient_biases={n: stats[n] for n in kseen["bias_terms"]},
+        membership_rows_identical=same, valid_proposals=int(kp.prop_valid.sum()))))
     return fails, losses
 
 
@@ -1067,25 +1194,28 @@ def partition_agreement(a, b) -> float:
     return min(one_way(a, b), one_way(b, a))
 
 
-def scene_f32(tmp: str, seed: int, models=None, tag: str = "scene f32"):
+def scene_f32(tmp: str, seed: int, models=None, tag: str = "scene f32", overrides=None):
     """A quarter of the forest through the eval CLI's path in f32, once
     with the kernels and once with the plain versions: per-point semantic
     labels >= 99.9% identical, the instance partition identical up to
     relabelling on >= 99% of points. ``min_score`` 0 keeps every cluster
     that survives NMS and the size filter (random weights score most
     clusters below the shipped 0.5), so that there are instances to
-    compare."""
+    compare. ``overrides``: the model's config fields beside the yaml's
+    (the checkpoint's budget overrides)."""
     from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import build_evaluator
     from panopticsegforlargescalepointcloud_tpu_torch.flagship import write_forest_scene
 
     ply = os.path.join(tmp, "forest_quarter.ply")
     points = write_forest_scene(ply, quarter=True)
-    ckpt = os.path.join(tmp, f"ckpt_f32_{models}")
-    serving_checkpoint(ckpt, seed, models, compute_dtype="float32", min_score=0.0)
+    key = tag.replace(" ", "_")
+    ckpt = os.path.join(tmp, f"ckpt_{key}")
+    serving_checkpoint(ckpt, seed, models, compute_dtype="float32", min_score=0.0,
+                       **(overrides or {}))
     over = [f"models=panoptic/{models}"] if models else []
     labels = {}
     for name, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
-        out = os.path.join(tmp, f"f32_{models}_{name}")
+        out = os.path.join(tmp, f"{key}_{name}")
         ev, run_kwargs, _, _ = build_evaluator([f"checkpoint_dir={ckpt}",
                                                 f"data.files.test=[{ply}]",
                                                 "tiles_per_dispatch=1"] + over)
@@ -1108,11 +1238,13 @@ def scene_f32(tmp: str, seed: int, models=None, tag: str = "scene f32"):
     return fails
 
 
-def scene_bf16(tmp: str, seed: int, groups=(1, 2), models=None, tag: str = "scene"):
+def scene_bf16(tmp: str, seed: int, groups=(1, 2), models=None, tag: str = "scene",
+               overrides=None, phased: bool = True):
     """The whole forest (~500k points) through the eval CLI's path in bf16,
     as shipped, from a port checkpoint: per tiles_per_dispatch g, one warm
     run, then one timed run without phase syncs (counts reset just before
-    it and read just after) and one with them (the phase split)."""
+    it and read just after) and, with ``phased``, one with them (the phase
+    split). ``overrides``: as :func:`scene_f32`'s."""
     import torch
 
     from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import build_evaluator
@@ -1120,8 +1252,9 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2), models=None, tag: str = "scen
 
     ply = os.path.join(tmp, "forest.ply")
     points = write_forest_scene(ply)
-    ckpt = os.path.join(tmp, f"ckpt_bf16_{models}")
-    serving_checkpoint(ckpt, seed, models)
+    key = tag.replace(" ", "_")
+    ckpt = os.path.join(tmp, f"ckpt_{key}_bf16")
+    serving_checkpoint(ckpt, seed, models, **(overrides or {}))
     over = [f"models=panoptic/{models}"] if models else []
     fails, res = [], {}
     launches = None
@@ -1133,7 +1266,7 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2), models=None, tag: str = "scen
         setup_s = time.perf_counter() - t0
         if launches is None:
             launches = {k: 0 for k in conv_kernels(ev.pcfg) + cluster_kernels(ev.pcfg)}
-        out = os.path.join(tmp, f"bf16_{models}_g{g}")
+        out = os.path.join(tmp, f"{key}_bf16_g{g}")
         ev.run(out_dir=out, **run_kwargs)  # warm
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1144,10 +1277,12 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2), models=None, tag: str = "scen
         wall = time.perf_counter() - t0
         counts = read_counts()
         timer = PhaseTimer()
-        tev, _, _, _ = build_evaluator(args, timer=timer)
-        t0 = time.perf_counter()
-        tev.run(out_dir=out, **run_kwargs)
-        wall_phased = time.perf_counter() - t0
+        wall_phased = None
+        if phased:
+            tev, _, _, _ = build_evaluator(args, timer=timer)
+            t0 = time.perf_counter()
+            tev.run(out_dir=out, **run_kwargs)
+            wall_phased = time.perf_counter() - t0
         tiles = len(ev.dataset.test_tiles(0))
         for k in launches:
             launches[k] += counts[k]
@@ -1166,6 +1301,7 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2), models=None, tag: str = "scen
             launches_per_scene={k: counts[k] for k in launches},
             cluster_overflow=ev.last_overflow["cluster_overflow"],
             scorer_overflow=ev.last_overflow["scorer_overflow"],
+            rg_graph_trunc=ev.last_overflow["rg_graph_trunc"],
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
             instances=int(len(np.unique(ins[ins >= 0]))),
             meanPQ=rep["meanPQ"], mIoU=rep["mIoU"], F1=rep["F1"],
@@ -1176,7 +1312,7 @@ def scene_bf16(tmp: str, seed: int, groups=(1, 2), models=None, tag: str = "scen
         if len(sem) != points:
             fails.append(f"{tag} bf16 g={g}: {len(sem)} labels for {points} points")
     if len(groups) > 1:
-        a, b = (scene_labels(os.path.join(tmp, f"bf16_{models}_g{g}")) for g in groups[:2])
+        a, b = (scene_labels(os.path.join(tmp, f"{key}_bf16_g{g}")) for g in groups[:2])
         res["g2_vs_g1_semantic_identical"] = float((a[0] == b[0]).mean())
         res["g2_vs_g1_instance_partition_agreement"] = partition_agreement(a[1], b[1])
     log(f"{tag} summary", json.dumps(res))
@@ -1255,6 +1391,7 @@ def setting_forward(cfg, arrays, seed: int, name: str, repeats: int = 3, tag=Non
     fwd = make_eval_forward(cfg, model)
     fwd(arrays)  # warm-up (allocator, first launches)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2**30  # held before the forward
     torch.cuda.reset_peak_memory_stats()
     rg, ms = [], []
     reset_counts()
@@ -1286,10 +1423,11 @@ def setting_forward(cfg, arrays, seed: int, name: str, repeats: int = 3, tag=Non
             make_eval_forward(cfg, model, timer=timer)(arrays)
         phased.append(timer.ms)
     rec = dict(ms_per_forward=whole, ms_median=statistics.median(whole), phases_ms=phased,
-               launches_per_forward=launches, peak_mem_gib=peak,
+               launches_per_forward=launches, peak_mem_gib=peak, base_mem_gib=base,
                valid_proposals=int(out.proposals.prop_valid.sum()),
                proposal_slots=int(out.proposals.prop_valid.shape[0]),
                cluster_overflow=int(out.cluster_overflow),
+               rg_graph_trunc=int(out.rg_graph_trunc),
                scorer_overflow=(None if out.scorer_overflow is None
                                 else int(out.scorer_overflow)),
                region_growing_calls=len(rg), mean_shift_dims=[m[2].shape[2] for m in ms])
@@ -1808,6 +1946,330 @@ def point_backbones_path(tmp: str, arrays, seed: int):
     return total, res, fails
 
 
+# ------------------------------------ the scorers, the mask head and the edge path
+
+
+@contextlib.contextmanager
+def edge_iterations(found: list):
+    """Record the iteration count of every edge-path propagation
+    (``cluster/region_grow.py:_grow_on_edges`` logs it at debug level)."""
+    import logging
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster import region_grow
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            found.append(record.args[0])
+
+    handler, level = Handler(), region_grow.log.level
+    region_grow.log.addHandler(handler)
+    region_grow.log.setLevel(logging.DEBUG)
+    try:
+        yield found
+    finally:
+        region_grow.log.removeHandler(handler)
+        region_grow.log.setLevel(level)
+
+
+def variant_f32(cfg32, arrays, seed: int, name: str):
+    """A variant's f32 eval forward with the kernels and with the plain
+    versions, under PyTorch's deterministic algorithms: heads within 1e-3 of
+    max |value|; on the dense pull >= 99.9% of membership rows identical, on
+    the edge path the proposals identical (only A differs); the scores of
+    the proposals whose members agree within 1e-3 of max |score|. With the
+    mask head, the member mask logits within 1e-3 of max |logit|, and a
+    keep decision of the score-feature filter may differ only where |logit|
+    < 1e-4 of max |logit| (the filter is a step at logit 0); the proposals
+    holding such a row leave the score comparison."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import random_model
+    from panopticsegforlargescalepointcloud_tpu_torch.train import make_eval_forward
+
+    model = random_model(cfg32, seed)
+    fwd = make_eval_forward(cfg32, model)
+    with deterministic():
+        _, k_out = fwd(arrays)
+        with plain_kernels():
+            db, p_out = fwd(arrays)
+    torch.cuda.synchronize()
+    tag = f"{name} f32 kernel vs plain"
+    fails = [f"{tag}: {m}" for m in check_output(cfg32, db, k_out)]
+    res = {}
+    for k in ("semantic_logits", "offset_logits", "embed_logits", "backbone_feats"):
+        a, b = getattr(k_out, k), getattr(p_out, k)
+        scale, err = float(b.abs().max()), float((a - b).abs().max())
+        res[k] = dict(max_abs_err=err, scale=scale)
+        if err > 1e-3 * max(scale, 1e-30):
+            fails.append(f"{tag} {k}: err {err} > 1e-3 * {scale}")
+    kp, pp = k_out.proposals, p_out.proposals
+    rows_same = kp.prop_id == pp.prop_id
+    res["membership_rows_identical"] = float(rows_same.float().mean())
+    res["valid_proposals"] = int(kp.prop_valid.sum())
+    if not cfg32.rg_dense_enabled and cfg32.rg_sources:
+        same = all(bool(torch.equal(getattr(kp, f), getattr(pp, f))) for f in kp._fields)
+        res["proposals_identical"] = same
+        if not same:
+            fails.append(f"{tag}: the edge path's proposals differ")
+    elif res["membership_rows_identical"] < 0.999:
+        fails.append(f"{tag}: membership rows identical {res['membership_rows_identical']}")
+    excluded = torch.zeros_like(kp.prop_valid)
+    for props in (kp, pp):
+        bad = props.prop_id[~rows_same]
+        excluded[bad[bad >= 0].long()] = True
+    if k_out.mask_scores is not None:
+        both = rows_same & k_out.mask_row_valid & p_out.mask_row_valid
+        a, b = k_out.mask_scores[both], p_out.mask_scores[both]
+        scale, err = float(b.abs().max()), float((a - b).abs().max())
+        thre = cfg32.mask_filter_score_feature_thre
+        flips = (torch.sigmoid(a) >= thre) != (torch.sigmoid(b) >= thre)
+        edge = b.abs() < 1e-4 * scale
+        res["mask_logits"] = dict(max_abs_err=err, scale=scale, keep_flips=int(flips.sum()),
+                                  flips_off_the_edge=int((flips & ~edge).sum()),
+                                  kept_share=float((torch.sigmoid(b) >= thre).float().mean()))
+        if err > 1e-3 * max(scale, 1e-30):
+            fails.append(f"{tag} mask logits: err {err} > 1e-3 * {scale}")
+        if int((flips & ~edge).sum()):
+            fails.append(f"{tag}: keep decisions differ away from logit 0 {res['mask_logits']}")
+        flipped = kp.prop_id[both][flips]
+        excluded[flipped[flipped >= 0].long()] = True
+    if k_out.cluster_scores is not None:
+        ok = kp.prop_valid & ~excluded
+        a, b = k_out.cluster_scores[ok], p_out.cluster_scores[ok]
+        scale = float(p_out.cluster_scores.abs().max())
+        err = float((a - b).abs().max()) if bool(ok.any()) else 0.0
+        res["scores"] = dict(max_abs_err=err, scale=scale, compared=int(ok.sum()),
+                             excluded=int((kp.prop_valid & excluded).sum()))
+        if err > 1e-3 * max(scale, 1e-30):
+            fails.append(f"{tag} scores: err {err} > 1e-3 * {scale}")
+    log(tag, json.dumps(res))
+    return fails
+
+
+def supervised_heads(model):
+    """Heads under which the mask loss has members to supervise on the
+    ground-free batch of :func:`scorers_edges_path`: every row one thing
+    class (2), votes a few mm from the positions (not at them: the
+    offsets' norm has no gradient at 0), mask logits biased positive, so
+    that region growing's proposals are the planted instances and keep an
+    IoU > 0.5 under the mask-based IoU."""
+    import torch
+
+    with torch.no_grad():
+        model.semantic_out.bias[2] += 8.0
+        model.offset_out.weight.mul_(1e-3)
+        model.offset_out.bias.fill_(1e-3)
+        model.mask_score_b.bias += 3.0
+
+
+def gate_keys_trainer(tmp: str):
+    """``cli/train.py`` with the mask head on the forest (train: the whole
+    scene; val: its quarter), 3 epochs of 4 steps, ``prepare_epoch`` 1, the
+    score-feature filter from epoch 2 (start 1), the mask-based IoU from
+    epoch 3 (start 2): epoch 1 prepare, epochs 2 and 3 full steps of two
+    gate states, three distinct steps over the run. Every logged loss
+    finite, ``mask_loss`` in the full epochs, one ``metrics.jsonl`` line per
+    epoch. Counts are reset just before the run and read just after it."""
+    from panopticsegforlargescalepointcloud_tpu_torch.cli import train as cli_train
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import write_forest_scene
+
+    train_ply, val_ply = os.path.join(tmp, "mask_train.ply"), os.path.join(tmp, "mask_val.ply")
+    write_forest_scene(train_ply)
+    write_forest_scene(val_ply, quarter=True)
+    run_dir = os.path.join(tmp, "run_mask")
+    m = "models.PointGroup-PAPER"
+    args = [f"data.files.train=[{train_ply}]", f"data.files.val=[{val_ply}]",
+            f"checkpoint_dir={run_dir}", "training.samples_per_epoch=16", "training.epochs=3",
+            f"{m}.prepare_epoch=1", f"{m}.mask_supervise=True",
+            f"{m}.use_mask_filter_score_feature=True",
+            f"{m}.use_mask_filter_score_feature_start_epoch=1",
+            f"{m}.cal_iou_based_on_mask=True", f"{m}.cal_iou_based_on_mask_start_epoch=2",
+            "pretty_print=False"]
+    fails, res = [], {}
+    recorder = StepRecorder()
+    reset_counts()
+    with recorder.installed():
+        t0 = time.perf_counter()
+        trainer = cli_train.main(args)
+        res["train_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    spe = trainer.steps_per_epoch
+    lines, rows = epoch_rows(run_dir, recorder.calls, spe)
+    pcfg = trainer.pcfg
+    per_epoch = ["prepare" if e <= pcfg.prepare_epoch else list(pcfg.gates(e))
+                 for e in range(1, 4)]
+    built = [list(k) for k in trainer._full_steps]
+    res.update(steps_per_epoch=spe, step_keys_per_epoch=per_epoch, full_step_keys=built,
+               eval_forward_keys=[list(k) for k in trainer._eval_fwds], launches=launches)
+    for row in rows:
+        row["mask_loss"] = lines[row["epoch"] - 1].get("train_mask_loss")
+        log("mask trainer epoch", json.dumps(row))
+    if len({str(k) for k in per_epoch}) != 3 or built != [[True, False], [True, True]]:
+        fails.append(f"mask trainer: gate keys {per_epoch}, built {built}")
+    if res["eval_forward_keys"] != built:
+        fails.append(f"mask trainer: validation forwards {res['eval_forward_keys']}")
+    if len(lines) != 3:
+        fails.append(f"mask trainer: metrics.jsonl has {len(lines)} lines for 3 epochs")
+    for line in lines:
+        bad = [k for k, v in line.items() if k.startswith("train_") and not math.isfinite(v)]
+        if bad:
+            fails.append(f"mask trainer: non-finite {bad} at step {line['step']}")
+    if any("train_mask_loss" not in line for line in lines[1:]):
+        fails.append("mask trainer: no mask_loss in a full epoch")
+    for i, c in enumerate(recorder.calls):
+        need = ["A", "A_dx", "D"] + (["B", "C"] if c["phase"] == "full" else [])
+        fails += [f"mask trainer: kernel {k} not launched in step {i} ({c['phase']})"
+                  for k in need if c["launches"][k] <= 0]
+    log("mask trainer summary", json.dumps({k: v for k, v in res.items()}))
+    return launches, res, fails
+
+
+def scorers_edges_path(tmp: str, arrays, seed: int):
+    """The tenth path: the flagship (``area4_ablation_3heads_5``, paper
+    plan, 131,072 rows of ``build_inputs``, 4 samples, bf16, seeded
+    weights) in its variants ``flagship.VARIANTS``: ``mask`` (the mask head
+    with both epoch gates open), ``encoder`` and ``mlp`` (the ScoreNet's
+    other forms), ``edge_all`` and ``edge_cap`` (region growing's edge path
+    on all rows and on the compacted rows). Per variant: the f32 forward
+    with the kernels against the plain versions (:func:`variant_f32`), 3
+    bf16 eval forwards (phases, launches, peak memory; for the edge
+    variants the graph's truncated rows and the propagation's iterations,
+    beside the dense pull's), 3 prepare + 2 full bf16 train steps; launch
+    checks: the encoder's and the mask head's convs add A launches to the
+    backbone's, the MLP scorer's forward launches A as the backbone alone,
+    the edge variants launch no B. Then one f32 full step with the kernels
+    and one with the plain versions for ``mask`` (on a ground-free batch of
+    the flagship's width under :func:`supervised_heads`, so that the mask
+    loss has members) and ``encoder``; ``mask`` served by the eval CLI (a
+    quarter of the forest in f32 against the plain versions, the whole
+    forest in bf16 at g = 2) and trained by the train CLI
+    (:func:`gate_keys_trainer`). Returns (launches of the path's counted
+    runs, records, failures)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import (
+        VARIANTS,
+        build_inputs,
+        flagship_config,
+        random_model,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.train import make_eval_forward
+
+    fails, res = [], {}
+    total = {k: 0 for k in kernels()}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # the dense pull's reference: the flagship as shipped, and the backbone's
+    # own A launches (a forward without clustering)
+    base = flagship_config(num_samples=4, compute_dtype="bfloat16")
+    dense, counts, _, _, f = setting_forward(base, arrays, seed, "dense", tag="dense reference")
+    fails += f
+    add(counts)
+    dense_calls = len(base.rg_sources)
+    res["dense"] = dict(forward_ms=dense["ms_median"], phases_ms=dense["phases_ms"][-1],
+                        iterations=counts["B"] / 2 / dense_calls, launches=counts)
+    reset_counts()
+    make_eval_forward(base, random_model(base, seed), with_clustering=False)(arrays)
+    torch.cuda.synchronize()
+    backbone_a = read_counts()["A"]
+    add(read_counts())
+    for name in VARIANTS:
+        cfg = flagship_config(num_samples=4, compute_dtype="bfloat16", variant=name)
+        fails += variant_f32(dataclasses.replace(cfg, compute_dtype="float32"), arrays, seed,
+                             name)
+        iters = []
+        with edge_iterations(iters):
+            rec, counts, _, _, f = setting_forward(cfg, arrays, seed, name, tag=name)
+        fails += f
+        add(counts)
+        if name in ("encoder", "mask") and counts["A"] <= backbone_a:
+            fails.append(f"{name}: A launched {counts['A']} times, the backbone alone "
+                         f"{backbone_a}: the scorer's convs did not launch it")
+        if name == "mlp" and counts["A"] != backbone_a:
+            fails.append(f"mlp: A launched {counts['A']} times, the backbone alone {backbone_a}")
+        if name.startswith("edge"):
+            fails += [f"{name}: kernel {k} launched {counts[k]} times on the edge path"
+                      for k in ("B", "B_keys", "B_blocks", "B_cands") if counts[k]]
+            if not iters:
+                fails.append(f"{name}: no edge propagation ran")
+        launches, tres, f = train_steps_bf16(cfg, arrays, seed, n_prepare=3, n_full=2,
+                                             tag=f"{name} train steps bf16")
+        fails += f
+        add(launches)
+        if name.startswith("edge"):
+            fails += [f"{name}: kernel {k} launched in a full step" for k in ("B", "B_keys")
+                      if launches[k]]
+        phases = rec["phases_ms"][-1]
+        res[name] = dict(
+            forward_ms=rec["ms_median"], forward_phases_ms=phases,
+            prepare_ms=tres["prepare"]["ms_per_step_median"],
+            full_ms=tres["full"]["ms_per_step_median"],
+            launches_per_forward={k: v for k, v in counts.items() if v},
+            launches_per_full_step={k: v for k, v in
+                                    tres["full"]["launches_per_step"][-1].items() if v},
+            backbone_a=backbone_a,
+            peak_mem_gib=dict(forward=rec["peak_mem_gib"],
+                              prepare=tres["prepare"]["peak_mem_gib"],
+                              full=tres["full"]["peak_mem_gib"]),
+            valid_proposals=rec["valid_proposals"], cluster_overflow=rec["cluster_overflow"],
+            scorer_overflow=rec["scorer_overflow"], rg_graph_trunc=rec["rg_graph_trunc"],
+            full_step_metrics={k: tres["full"]["last_metrics"].get(k) for k in
+                               ("mask_loss", "score_loss", "rg_graph_trunc", "loss")},
+            edge_iterations=sorted(set(iters)) or None,
+            region_growing_ms=phases.get("region_growing"),
+            dense_region_growing_ms=res["dense"]["phases_ms"].get("region_growing"),
+            dense_iterations=res["dense"]["iterations"])
+        torch.cuda.empty_cache()
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_conv import train_step_convs
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hierarchy
+    from panopticsegforlargescalepointcloud_tpu_torch.train import canonicalize
+
+    # A (forward and dX) and D at the scorers' own shapes, against the plain versions
+    hier = build_hierarchy(canonicalize(*arrays).grid, base.num_down)
+    for name in ("encoder", "mask"):
+        cfg = flagship_config(num_samples=4, compute_dtype="bfloat16", variant=name)
+        convs = [c for c in train_step_convs(cfg, arrays, hier, seed)
+                 if c["map"].startswith("scorer")]
+        rows, f = phase_convs(convs, gen_seed=7, tag=f"{name} scorer conv")
+        fails += f
+        res[f"{name}_scorer_convs"] = dict(count=len(rows), worst_rel=max(
+            r["max_abs_err"] / max(r["tol"] * 1e4, 1e-30) for r in rows))
+        torch.cuda.empty_cache()
+    supervised = build_inputs(n_ground=0, n_instances=60)
+    for name, batch, prepare in (("mask", supervised, supervised_heads),
+                                 ("encoder", arrays, None)):
+        cfg32 = flagship_config(num_samples=4, compute_dtype="float32", variant=name)
+        with deterministic():
+            f, losses = train_step_f32(cfg32, batch, seed,
+                                       tag=f"{name} train step f32 kernel vs plain",
+                                       grads_file=f"{name}_f32_grads.json", prepare=prepare,
+                                       align_gates=True)
+        fails += f
+        res[f"{name}_f32_step_losses"] = losses
+        if name == "mask" and not all(math.isfinite(v) and v > 0
+                                      for v in losses.get("mask_loss", (0.0,))):
+            fails.append(f"mask f32 step: mask_loss {losses.get('mask_loss')}")
+        torch.cuda.empty_cache()
+    fails += scene_f32(tmp, seed, tag="mask scene f32", overrides=VARIANTS["mask"])
+    scene_launches, scene_res, f = scene_bf16(tmp, seed, groups=(2,), tag="mask scene",
+                                              overrides=VARIANTS["mask"], phased=False)
+    fails += f
+    add(scene_launches)
+    res["scene_mask"] = {g: {k: r[k] for k in ("s_per_scene", "points_per_s",
+                                                "launches_per_scene", "instances", "meanPQ",
+                                                "peak_mem_gib", "scorer_overflow")}
+                         for g, r in scene_res.items()}
+    trainer_launches, tr_res, f = gate_keys_trainer(tmp)
+    fails += f
+    add(trainer_launches)
+    res["trainer_mask"] = dict(train_s=tr_res["train_s"], keys=tr_res["step_keys_per_epoch"])
+    log("scorers and edges summary", json.dumps(res))
+    return total, res, fails
+
+
 def main() -> int:
     import torch
 
@@ -1902,7 +2364,10 @@ def main() -> int:
         log(f"settings path done: {time.perf_counter() - t0:.1f} s")
         point_launches, _, f = point_backbones_path(tmp, arrays, seed=5)
         fails += f
-    log(f"point backbones path done: {time.perf_counter() - t0:.1f} s")
+        log(f"point backbones path done: {time.perf_counter() - t0:.1f} s")
+        scorer_launches, _, f = scorers_edges_path(tmp, arrays, seed=5)
+        fails += f
+    log(f"scorers and edges path done: {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(OUT_DIR, "conv_shapes.json"), "w") as fh:
         json.dump({"train_step": conv_rows, "eval_tile": tile_rows}, fh, indent=0)
 
@@ -1923,12 +2388,13 @@ def main() -> int:
         # backward role of the same kernel
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
                    "trainer": trainer_launches[key], "settings": settings_launches[key],
-                   "point_backbones": point_launches[key]}
+                   "point_backbones": point_launches[key], "scorers_edges": scorer_launches[key]}
         if key == "A":
             by_path["train_steps_dx"] = train_launches["A_dx"]
             by_path["trainer_dx"] = trainer_launches["A_dx"]
             by_path["settings_dx"] = settings_launches["A_dx"]
             by_path["point_backbones_dx"] = point_launches["A_dx"]
+            by_path["scorers_edges_dx"] = scorer_launches["A_dx"]
         if key in scene_launches:
             by_path["scene_eval"] = scene_launches[key]
         entries.append(dict(
@@ -1952,7 +2418,8 @@ def main() -> int:
         k, rec = ks[key], b_rec["tables"][part]
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
                    "scene_eval": scene_launches[key], "trainer": trainer_launches[key],
-                   "settings": settings_launches[key], "point_backbones": point_launches[key]}
+                   "settings": settings_launches[key], "point_backbones": point_launches[key],
+                   "scorers_edges": scorer_launches[key]}
         entries.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1966,7 +2433,8 @@ def main() -> int:
     k = ks["E"]
     entries.append(dict(
         name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-        launches=probe_launches, launches_by_path={"probe": probe_launches},
+        launches=probe_launches,
+        launches_by_path={"probe": probe_launches, "scorers_edges": scorer_launches["E"]},
         max_abs_err=max(r["max_abs_err"] for r in e_rows), ms=e_rep["ms"],
         device_ms=e_rep["device_ms"], plain_ms=e_plain, bound_ms=e_rep["bound_ms"],
         bound_by=e_rep["bound_by"], library_ms=None,

@@ -17,9 +17,19 @@ import torch
 from ..models.pointgroup3heads import Proposals
 
 
-def proposal_masks(props: Proposals, num_props: int, num_points: int) -> torch.Tensor:
-    """Dense [P, N] f32 0/1 membership matrix."""
-    ok = props.member_valid & (props.prop_id >= 0) & (props.point_idx >= 0)
+def member_ok(props: Proposals, mask_scores=None) -> torch.Tensor:
+    """[M] the membership rows that count: valid, and where the mask head's
+    logits ``mask_scores`` [M] are given, above -0.5 (the reference's
+    member filter, ``structure_3heads.py:38``)."""
+    ok = props.member_valid & (props.prop_id >= 0)
+    return ok if mask_scores is None else ok & (mask_scores > -0.5)
+
+
+def proposal_masks(props: Proposals, num_props: int, num_points: int,
+                   mask_scores=None) -> torch.Tensor:
+    """Dense [P, N] f32 0/1 membership matrix of the counted members
+    (:func:`member_ok`)."""
+    ok = member_ok(props, mask_scores) & (props.point_idx >= 0)
     flat = (props.prop_id.long() * num_points + props.point_idx.long())[ok]
     m = torch.zeros(num_props * num_points, dtype=torch.float32, device=ok.device)
     m[flat] = 1.0
@@ -55,12 +65,13 @@ def greedy_nms(ious: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 
 
 def get_instances(props: Proposals, scores: torch.Tensor, num_points: int,
-                  nms_threshold: float = 0.3, min_cluster_points: int = 100,
+                  mask_scores=None, nms_threshold: float = 0.3, min_cluster_points: int = 100,
                   min_score: float = 0.5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """NMS + filters; returns (keep [P] bool, masks [P, N]): pairwise-IoU
-    NMS at ``nms_threshold``, then size > ``min_cluster_points`` and score
-    > ``min_score``."""
-    masks = proposal_masks(props, scores.shape[0], num_points)
+    """NMS + filters; returns (keep [P] bool, masks [P, N]): the mask
+    logits' member filter (:func:`member_ok`), pairwise-IoU NMS at
+    ``nms_threshold``, then size > ``min_cluster_points`` and score >
+    ``min_score``."""
+    masks = proposal_masks(props, scores.shape[0], num_points, mask_scores)
     ious, sizes = pairwise_iou(masks)
     keep = greedy_nms(ious, scores, props.prop_valid, nms_threshold)
     keep = keep & (sizes > min_cluster_points) & (scores > min_score)

@@ -126,7 +126,14 @@ def panoptic_config_from_yaml(
         scorer_type=str(m.get("scorer_type", "unet") or ""),
         use_score_net=bool(m.get("use_score_net", True)),
         mask_supervise=bool(m.get("mask_supervise", False)),
+        use_mask_filter_score_feature=bool(m.get("use_mask_filter_score_feature", False)),
+        use_mask_filter_score_feature_start_epoch=int(
+            m.get("use_mask_filter_score_feature_start_epoch", 200)),
+        mask_filter_score_feature_thre=float(m.get("mask_filter_score_feature_thre", 0.5)),
+        cal_iou_based_on_mask=bool(m.get("cal_iou_based_on_mask", False)),
+        cal_iou_based_on_mask_start_epoch=int(m.get("cal_iou_based_on_mask_start_epoch", 200)),
         rg_point_cap=float(m.get("rg_point_cap", 0)),
+        rg_dense=str(m.get("rg_dense", "auto")),
         scorer_capacity_mult=float(m.get("scorer_capacity_mult", 1.0)),
         ms_point_cap=int(m.get("ms_point_cap", 16384)),
         hd_point_cap=int(m.get("hd_point_cap", 2048)),
@@ -141,6 +148,7 @@ def panoptic_config_from_yaml(
         w_offset_dir=float(lw.get("offset_dir_loss", 0.1)),
         w_score=float(lw.get("score_loss", 1.0)),
         w_embed=float(lw.get("embedding_loss", 1.0)),
+        w_mask=float(lw.get("mask_loss", 1.0)),
         num_samples=tr.batch_size,
         # the model yaml may pick the backbone ("kpconv", "pointnet2"); an
         # explicit backbone=... other than the "paper" default overrides it

@@ -22,16 +22,18 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..cluster.nms import pairwise_iou, proposal_masks
+from ..cluster.nms import member_ok, pairwise_iou, proposal_masks
 from ..models.pointgroup3heads import Proposals
 
 
-def device_part(props: Proposals, scores: Optional[torch.Tensor],
-                num_points: int) -> Dict[str, torch.Tensor]:
+def device_part(props: Proposals, scores: Optional[torch.Tensor], num_points: int,
+                mask_scores: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The device tensors the host extraction needs: the membership table
-    (``prop_id`` -1 where the member does not count), per-proposal validity
-    and sample, the scores and, with scores, the [P, P] IoU."""
-    ok = props.member_valid & (props.prop_id >= 0)
+    (``prop_id`` -1 where the member does not count: invalid, or filtered
+    by the mask logits ``mask_scores``, :func:`..cluster.nms.member_ok`),
+    per-proposal validity and sample, the scores and, with scores, the
+    [P, P] IoU."""
+    ok = member_ok(props, mask_scores)
     out = dict(
         prop_id=torch.where(ok, props.prop_id, torch.full_like(props.prop_id, -1)),
         point_idx=props.point_idx,
@@ -39,7 +41,7 @@ def device_part(props: Proposals, scores: Optional[torch.Tensor],
         prop_batch=props.prop_batch,
     )
     if scores is not None:
-        masks = proposal_masks(props, props.prop_valid.shape[0], num_points)
+        masks = proposal_masks(props, props.prop_valid.shape[0], num_points, mask_scores)
         out["iou"], _ = pairwise_iou(masks)
         out["scores"] = scores
     return out
@@ -116,10 +118,12 @@ def pull(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def extract_clusters(props: Proposals, scores: Optional[torch.Tensor], num_points: int,
-                     nms_threshold: float = 0.3, min_cluster_points: int = 100,
+                     mask_scores: Optional[torch.Tensor] = None, nms_threshold: float = 0.3,
+                     min_cluster_points: int = 100,
                      min_score: float = 0.5) -> Tuple[List[np.ndarray], List[int]]:
     """Returns (clusters, kept_prop_ids) for proposals on any device; the
     JAX package's host ``extract_clusters`` on the same inputs gives the same
-    result."""
-    h = pull(device_part(props, scores, num_points))
+    result. ``mask_scores``: the mask head's member logits (members at or
+    below -0.5 leave their proposal)."""
+    h = pull(device_part(props, scores, num_points, mask_scores))
     return host_part(h, None, nms_threshold, min_cluster_points, min_score)

@@ -7,7 +7,9 @@ shared by ``chip_smoke.py``, :mod:`.trace_eval`, :mod:`.trace_train` and
   0.12 m data yaml, trained as ``conf/training/npm3d.yaml`` with the
   default exponential lr schedule; inputs as the JAX package's
   ``bench.py:build_inputs`` (4 synthetic 16 m cylinders in 131,072 rows).
-  The paper's other settings (``SETTINGS``) at the same width and data.
+  The paper's other settings (``SETTINGS``) at the same width and data,
+  and the flagship's variants (``VARIANTS``: the ScoreNet's other forms and
+  region growing's edge path) through its yaml's dotted overrides.
 * Serving: ``conf/eval.yaml``'s defaults, the same model on the FOR-instance
   data yaml ``treeins_rad8`` (2 classes, 0.2 m grid, 8 m cylinders,
   32,768-row eval tiles), on the JAX package's ``bench.py:measure_e2e``
@@ -56,28 +58,49 @@ POINT_BACKBONES = {
 }
 
 
+# the flagship's variants: name -> the model yaml's dotted overrides
+# (``models.PointGroup-PAPER.<key>=<value>``, as on a CLI line)
+VARIANTS = {
+    # the mask head with both epoch gates open from the start
+    "mask": {"mask_supervise": True, "use_mask_filter_score_feature": True,
+             "use_mask_filter_score_feature_start_epoch": 0, "cal_iou_based_on_mask": True,
+             "cal_iou_based_on_mask_start_epoch": 0},
+    "encoder": {"scorer_type": "encoder"},  # the sparse-conv encoder scorer
+    "mlp": {"scorer_type": "mlp"},  # the per-row MLP scorer
+    "edge_all": {"rg_point_cap": 0},  # region growing's edge path on all rows
+    "edge_cap": {"rg_dense": "off"},  # the edge path on the shipped 0.375 cap
+}
+
+
+def variant_overrides(variant: str, model: str = "PointGroup-PAPER") -> list:
+    """The dotted overrides of ``VARIANTS[variant]`` for the model ``model``;
+    a string value is quoted, so that the loader keeps ``off`` a string."""
+    return [f"models.{model}.{k}=" + (f"'{v}'" if isinstance(v, str) else str(v))
+            for k, v in VARIANTS[variant].items()]
+
+
 def model_name(models: str) -> str:
     """The model name of the model yaml ``models``."""
     return POINT_BACKBONES.get(models, "PointGroup-PAPER")
 
 
-def _flagship_yaml(models: str = SETTINGS["IV"]):
+def _flagship_yaml(models: str = SETTINGS["IV"], variant=None):
     return load_config(CONF_DIR, [
         "data=panoptic/npm3d-sparseconv_grid_012_R_16_cylinder_area1",
         f"models=panoptic/{models}",
         f"model_name={model_name(models)}",
         "training=npm3d",
         "lr_scheduler=exponential",
-    ])
+    ] + (variant_overrides(variant, model_name(models)) if variant else []))
 
 
 def flagship_config(num_samples: int = 4, compute_dtype: str = "bfloat16",
-                    models: str = SETTINGS["IV"], **overrides) -> PanopticConfig:
+                    models: str = SETTINGS["IV"], variant=None, **overrides) -> PanopticConfig:
     """The flagship's data, training and width with the model yaml
     ``models`` (a name of ``conf/models/panoptic``; ``SETTINGS`` maps the
     paper's settings to theirs, ``POINT_BACKBONES`` the point backbones'
-    yamls to their model names)."""
-    return panoptic_config_from_yaml(_flagship_yaml(models), num_samples=num_samples,
+    yamls to their model names) and the overrides of ``VARIANTS[variant]``."""
+    return panoptic_config_from_yaml(_flagship_yaml(models, variant), num_samples=num_samples,
                                      compute_dtype=compute_dtype, **overrides)[0]
 
 
@@ -102,14 +125,16 @@ def flagship_training(cfg: PanopticConfig, seed: int, device=None
 
 def build_inputs(num_tiles: int = 4, capacity: int = 131072, seed: int = 0,
                  radius: float = 16.0, grid_size: float = 0.12, n_instances: int = 24,
-                 pts_per_instance: int = 400):
+                 pts_per_instance: int = 400, n_ground=None):
     """Batch arrays (numpy, in ``batch_arrays`` order) of synthetic
-    NPM3D-scale cylinders."""
+    NPM3D-scale cylinders; ``n_ground`` ground points a tile (default: a
+    tile's share of ``capacity``)."""
     rng = np.random.default_rng(seed)
+    n_ground = capacity // num_tiles if n_ground is None else n_ground
     tiles = [
         synthetic_tile(rng, num_classes=9, stuff_classes=(0, 7, 8),
                        n_instances=n_instances, pts_per_instance=pts_per_instance,
-                       n_ground=capacity // num_tiles, radius=radius, grid_size=grid_size)
+                       n_ground=n_ground, radius=radius, grid_size=grid_size)
         for _ in range(num_tiles)
     ]
     return batch_arrays(collate_tiles(tiles, capacity=capacity, num_tiles=num_tiles))

@@ -1,11 +1,10 @@
 """Panoptic losses: semantic NLL, offset L1 + cosine, discriminative
-embedding loss, and the ScoreNet's IoU-target BCE.
+embedding loss, the ScoreNet's IoU-target BCE and the mask head's BCE.
 
 Counterparts of the JAX package's ``models/losses.py``. Proposals are the
 padded membership table (:class:`.pointgroup3heads.Proposals`) and instances
 are compact per-sample ids in [1, K], so every reduction is a segment op.
-All reductions are f32. The mask loss (``mask_supervise``) is not ported
-yet.
+All reductions are f32.
 """
 
 from __future__ import annotations
@@ -109,16 +108,21 @@ def discriminative_loss(embed: torch.Tensor, instance_labels: torch.Tensor,
 
 
 def instance_iou(proposals, instance_labels: torch.Tensor, batch: torch.Tensor,
-                 num_samples: int, max_instances: int) -> torch.Tensor:
+                 num_samples: int, max_instances: int,
+                 member_pass: torch.Tensor | None = None) -> torch.Tensor:
     """IoU [P, B*K] between every proposal and every GT instance (GT
     instance of a row: batch * K + label - 1); 0 for absent instances and
-    invalid proposals."""
+    invalid proposals. ``member_pass`` [M] bool (the mask-based IoU): the
+    members where it is false leave the intersection and the proposal's
+    size; GT sizes stay."""
     p = proposals.prop_valid.shape[0]
     n_gt = num_samples * max_instances
     pt = proposals.point_idx.clamp(min=0).long()
     lbl = instance_labels[pt]
     bat = batch[pt]
     member_ok = proposals.member_valid & (proposals.prop_id >= 0)
+    if member_pass is not None:
+        member_ok = member_ok & member_pass
     minus1 = torch.full_like(proposals.prop_id, -1)
     gt_of_member = torch.where(member_ok & (lbl > 0), bat * max_instances + (lbl - 1), minus1)
     pair = torch.where(gt_of_member >= 0,
@@ -136,6 +140,15 @@ def instance_iou(proposals, instance_labels: torch.Tensor, batch: torch.Tensor,
     return torch.where(proposals.prop_valid[:, None], iou, 0.0)
 
 
+def _clip_probs(p: torch.Tensor) -> torch.Tensor:
+    """``p`` clipped to [1e-7, 1 - 1e-7] as ``jnp.clip`` clips it: a max then
+    a min, whose gradients split at a tie, so a probability that sits on a
+    bound (a saturated sigmoid rounds to 1 - 1e-7 in f32) passes half its
+    gradient, where ``torch.clamp`` would pass all of it."""
+    lo = torch.full((), 1e-7, dtype=torch.float32, device=p.device)
+    return torch.minimum(torch.maximum(p.float(), lo), 1.0 - lo)
+
+
 def instance_iou_loss(ious: torch.Tensor, cluster_scores: torch.Tensor,
                       prop_valid: torch.Tensor, min_iou_threshold: float = 0.25,
                       max_iou_threshold: float = 0.75) -> torch.Tensor:
@@ -144,7 +157,30 @@ def instance_iou_loss(ious: torch.Tensor, cluster_scores: torch.Tensor,
     max_iou = ious.max(dim=1).values
     shat = torch.clamp((max_iou - min_iou_threshold) / (max_iou_threshold - min_iou_threshold),
                        0.0, 1.0)
-    s = torch.clamp(cluster_scores.float(), 1e-7, 1.0 - 1e-7)
+    s = _clip_probs(cluster_scores)
     bce = -(shat * torch.log(s) + (1.0 - shat) * torch.log(1.0 - s))
     m = prop_valid.float()
     return (bce * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def mask_loss(ious: torch.Tensor, proposals, mask_scores_sigmoid: torch.Tensor,
+              instance_labels: torch.Tensor, max_instances: int,
+              member_scored: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-member BCE of the mask probability against membership in the
+    proposal's best GT instance (the first of equal IoUs, as ``argmax``
+    picks it), for proposals whose best IoU exceeds 0.5; the others weigh
+    0. Normalized over all counted members (``F.binary_cross_entropy``
+    with ``weight=``). ``member_scored`` [M] bool leaves out the members
+    without a scorer row, whose gathered logit is another row's."""
+    max_iou, arg = ious.max(dim=1).values, torch.argmax(ious, dim=1)
+    best_label = (arg % max_instances + 1).to(instance_labels.dtype)
+    supervised = (max_iou > 0.5) & proposals.prop_valid  # [P]
+    pid = proposals.prop_id.clamp(min=0).long()
+    member_ok = proposals.member_valid & (proposals.prop_id >= 0)
+    if member_scored is not None:
+        member_ok = member_ok & member_scored
+    sup_m = supervised[pid] & member_ok
+    tgt = (instance_labels[proposals.point_idx.clamp(min=0).long()] == best_label[pid]).float()
+    s = _clip_probs(mask_scores_sigmoid)
+    bce = -(tgt * torch.log(s) + (1.0 - tgt) * torch.log(1.0 - s))
+    return (bce * sup_m.float()).sum() / torch.clamp(member_ok.float().sum(), min=1.0)

@@ -1,9 +1,10 @@
 """PointGroup3Heads and PointGroupEmbed: backbone + semantic/offset/embed
-heads + UNet ScoreNet.
+heads + ScoreNet.
 
 Counterpart of the JAX package's ``models/pointgroup3heads.py`` for both
 families of the paper's ablation table: ``backbone_heads`` (the embed
-family has no offset head), ``score`` (UNet scorer), ``build_proposals``
+family has no offset head), ``score`` (the UNet scorer with its optional
+mask head, the sparse-conv encoder or the per-row MLP), ``build_proposals``
 (3heads: region growing on the configured sources + mean shift on
 embeddings; embed: the ``EMBED_STRATEGIES`` ops, mean shift and HDBSCAN on
 random dimension subsets and region growing on positions),
@@ -20,6 +21,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..cluster.hdbscan import hdbscan_labels
@@ -34,13 +36,19 @@ from .losses import (
     discriminative_loss,
     instance_iou,
     instance_iou_loss,
+    mask_loss,
     offset_loss,
     semantic_nll_loss,
 )
 from .modules import PointMLP
-from .plans import paper_backbone_plan, scorer_unet_plan, tiny_backbone_plan
+from .plans import (
+    paper_backbone_plan,
+    scorer_encoder_plan,
+    scorer_unet_plan,
+    tiny_backbone_plan,
+)
 from .point_backbones import KPConvBackbone, PointNet2Backbone
-from .unet import SparseUNet
+from .unet import SparseEncoder, SparseUNet
 
 # PointGroupEmbed strategy table (Setting I family), the JAX package's
 # EMBED_STRATEGIES: every op is (method, space, loops, low, high). loops 0:
@@ -88,10 +96,21 @@ class PanopticConfig:
     bandwidth: float = 0.6
     cluster_radius: float = 0.3
     prepare_epoch: int = 30
-    # "unet" | "" (semantic certainty: the members' mean class probability)
+    # "unet" | "encoder" | "mlp" | "" (semantic certainty: the members' mean
+    # class probability)
     scorer_type: str = "unet"
     use_score_net: bool = True
+    # the mask head on the UNet scorer's rows (mask_score_a, mask_score_b)
     mask_supervise: bool = False
+    # the score feature keeps only rows whose mask probability reaches the
+    # threshold, once epoch > start epoch (or with the gates open, epoch None)
+    use_mask_filter_score_feature: bool = False
+    use_mask_filter_score_feature_start_epoch: int = 200
+    mask_filter_score_feature_thre: float = 0.5
+    # IoU targets of the score loss count only the members whose mask
+    # probability passes 0.5, once epoch > start epoch
+    cal_iou_based_on_mask: bool = False
+    cal_iou_based_on_mask_start_epoch: int = 200
     min_iou_threshold: float = 0.25
     max_iou_threshold: float = 0.75
     block_merge_th: float = 0.01  # full-scene block merging's IoU threshold
@@ -101,6 +120,7 @@ class PanopticConfig:
     w_offset_dir: float = 0.1
     w_score: float = 1.0
     w_embed: float = 1.0
+    w_mask: float = 1.0
     num_samples: int = 4
     max_instances: int = 64  # K, instance ids per sample
     max_props_rg: int = 128
@@ -109,8 +129,18 @@ class PanopticConfig:
     ms_point_cap: int = 16384
     scorer_capacity_mult: float = 1.0
     # thing-row budget of region growing: a fraction in (0, 1) of the padded
-    # rows (rounded up to the dense-pull tile, 2048) or an absolute count
+    # rows (rounded up to the dense-pull tile, 2048) or an absolute count;
+    # 0 grows on all rows by the edge path
     rg_point_cap: float = 0
+    # the edge path's budgets: forward (and reverse) edges a row, candidate
+    # rows scanned a cell
+    rg_k_neighbors: int = 16
+    rg_cell_cap: int = 8
+    # the dense pull (kernel B) over the compacted rows: "on" | "off" (the
+    # edge path) | "auto". "auto" means on, on the card and on the CPU: B is
+    # the port's counterpart of the TPU's dense pull, which the JAX
+    # package's "auto" takes on a TPU only
+    rg_dense: str = "auto"
     min_cluster_size: int = 10
     # HDBSCAN (embed family; the reference's hdbscan_cluster.py settings)
     hd_min_samples: int = 5
@@ -158,20 +188,35 @@ class PanopticConfig:
                 f"proposal ids but the cluster budget needs {self.total_props}; widen "
                 f"the proposal-id field (fewer coord bits) or shrink max_props_rg/ms budgets"
             )
-        unsupported = []
-        if self.scorer_type in ("encoder", "mlp"):
-            unsupported.append(f"scorer_type={self.scorer_type!r}")
-        if self.mask_supervise:
-            unsupported.append("mask_supervise")
-        if self.backbone not in ("paper", "tiny", "kpconv", "pointnet2"):
-            unsupported.append(f"backbone={self.backbone!r}")
-        if unsupported:
-            raise NotImplementedError(
-                "the PyTorch port does not implement " + ", ".join(unsupported) + " yet")
 
     @property
     def scorer_layout(self) -> BitLayout:
         return BitLayout(*self.scorer_bits)
+
+    @property
+    def rg_dense_enabled(self) -> bool:
+        """Region growing pulls densely (kernel B): a compaction budget and
+        ``rg_dense`` not "off"."""
+        if not self.rg_point_cap:
+            return False
+        return self.rg_dense == "auto" or self.rg_dense in (True, "on", "true", "1")
+
+    @property
+    def has_mask_head(self) -> bool:
+        """The mask head sits on the UNet scorer only (the flax tree has its
+        weights nowhere else)."""
+        return self.mask_supervise and self.scorer_type not in ("encoder", "mlp")
+
+    def gates(self, epoch: Optional[int]) -> Tuple[bool, bool]:
+        """The epoch gates of the mask head: (score-feature filter, mask IoU
+        targets), each on where its flag is set and ``epoch`` is None or
+        past its start epoch. The trainer keys its steps by this pair."""
+        def past(start):
+            return epoch is None or epoch > start
+        return (self.mask_supervise and self.use_mask_filter_score_feature
+                and past(self.use_mask_filter_score_feature_start_epoch),
+                self.mask_supervise and self.cal_iou_based_on_mask
+                and past(self.cal_iou_based_on_mask_start_epoch))
 
     def resolved_point_cap(self, n: int) -> int:
         """Thing-row budget for ``n`` padded rows, clamped to ``n``."""
@@ -268,10 +313,14 @@ class PanopticOutput(NamedTuple):
     backbone_feats: torch.Tensor  # [N, F]
     proposals: Optional[Proposals] = None
     cluster_scores: Optional[torch.Tensor] = None  # [P]
+    mask_scores: Optional[torch.Tensor] = None  # [M] mask logit of each member (mask head)
+    mask_row_valid: Optional[torch.Tensor] = None  # [M] the member has a scorer row
     # [] int32 members dropped from the ScoreNet grid
     scorer_overflow: Optional[torch.Tensor] = None
     # [] int32 thing rows past the clustering budgets
     cluster_overflow: Optional[torch.Tensor] = None
+    # [] int32 rows whose radius-graph edges were truncated (edge path)
+    rg_graph_trunc: Optional[torch.Tensor] = None
     # the deformable KPConv's regularizers, summed per name (training mode)
     internal_losses: Optional[Dict[str, torch.Tensor]] = None
 
@@ -298,11 +347,15 @@ def make_backbone(cfg: PanopticConfig) -> nn.Module:
 
 
 class PointGroup3HeadsNet(nn.Module):
-    """Backbone + 3 heads (each MLP([F, F], bias=False) -> Linear) + the UNet
-    ScoreNet with its sigmoid head. Attribute names follow the flax model.
-    The embed family has no offset head; the ScoreNet weights exist as in
-    the flax tree (whose init touches the scorer) even where no forward
-    uses them (``use_score_net`` false, or the semantic-certainty score)."""
+    """Backbone + 3 heads (each MLP([F, F], bias=False) -> Linear) + the
+    ScoreNet with its sigmoid head. Attribute names follow the flax model,
+    and the modules are those whose weights the flax tree holds (its init
+    creates only what it calls): ``scorer_encoder`` for ``scorer_type``
+    "encoder", ``scorer_mlp`` for "mlp", the UNet ``scorer`` otherwise, and
+    with it ``mask_score_a``/``_b`` under ``mask_supervise``. The embed
+    family has no offset head; the ScoreNet weights exist even where no
+    forward uses them (``use_score_net`` false, or the semantic-certainty
+    score)."""
 
     def __init__(self, cfg: PanopticConfig):
         super().__init__()
@@ -316,8 +369,18 @@ class PointGroup3HeadsNet(nn.Module):
             self.offset_out = nn.Linear(f, 3)
         self.embed_mlp = PointMLP(f, (f,), use_bias=False)
         self.embed_out = nn.Linear(f, cfg.embed_dim)
-        self.scorer = SparseUNet(**scorer_unet_plan(f), compute_dtype=cfg.compute_dtype)
+        if cfg.scorer_type == "encoder":
+            self.scorer_encoder = SparseEncoder(**scorer_encoder_plan(f),
+                                                num_segments=cfg.total_props,
+                                                compute_dtype=cfg.compute_dtype)
+        elif cfg.scorer_type == "mlp":
+            self.scorer_mlp = PointMLP(f, (f, f))  # the reference's ScorerMLP
+        else:
+            self.scorer = SparseUNet(**scorer_unet_plan(f), compute_dtype=cfg.compute_dtype)
         self.scorer_head = nn.Linear(f, 1)
+        if cfg.has_mask_head:
+            self.mask_score_a = nn.Linear(f, f)
+            self.mask_score_b = nn.Linear(f, 1)
 
     def backbone_heads(self, feats: torch.Tensor, hier: Hierarchy, momentum=0.1, *,
                        pos: torch.Tensor):
@@ -342,12 +405,31 @@ class PointGroup3HeadsNet(nn.Module):
         return x, sem, torch.where(m, off, 0.0), torch.where(m, emb, 0.0), internal
 
     def score(self, scorer_feats, scorer_hier: Hierarchy, prop_of_row, num_props: int,
-              momentum=0.1):
-        """ScoreNet -> per-proposal max pool -> sigmoid head: scores [P]."""
-        out = self.scorer(scorer_feats, scorer_hier, momentum)
+              momentum=0.1, epoch: Optional[int] = None):
+        """ScoreNet -> per-proposal max pool -> sigmoid head: (scores [P],
+        mask logits [rows] or None). The encoder pools per proposal itself
+        (the coarsest grid's batch field); the MLP and the UNet scorer pool
+        their rows by ``prop_of_row``. Under the mask head, the score
+        feature keeps only rows whose mask probability reaches
+        ``mask_filter_score_feature_thre`` where the filter's epoch gate is
+        open (:meth:`PanopticConfig.gates`; ``epoch`` None opens it)."""
+        cfg = self.cfg
+        if cfg.scorer_type == "encoder":
+            cluster_feats = self.scorer_encoder(scorer_feats, scorer_hier, momentum, num_props)
+            return torch.sigmoid(self.scorer_head(cluster_feats))[:, 0], None
+        mask_logits = None
+        if cfg.scorer_type == "mlp":
+            out = self.scorer_mlp(scorer_feats, scorer_hier.grids[0].mask, momentum)
+        else:
+            out = self.scorer(scorer_feats, scorer_hier, momentum)
+            if cfg.mask_supervise:
+                mask_logits = self.mask_score_b(F.relu(self.mask_score_a(out)))[:, 0]
+                if cfg.gates(epoch)[0]:
+                    keep = torch.sigmoid(mask_logits) >= cfg.mask_filter_score_feature_thre
+                    out = out * keep[:, None]
         seg = torch.where(prop_of_row >= 0, prop_of_row, torch.full_like(prop_of_row, -1))
         cluster_feats = segment_max(out, seg, num_props, fill=0.0)
-        return torch.sigmoid(self.scorer_head(cluster_feats))[:, 0]
+        return torch.sigmoid(self.scorer_head(cluster_feats))[:, 0], mask_logits
 
 
 def _phase(timer, name):
@@ -363,8 +445,10 @@ class _Blocks:
         self.n, self.dev = n, dev
         self.points, self.valid, self.batch, self.type = [], [], [], []
         self.id_offset = 0
+        self.graph_trunc = torch.zeros((), dtype=torch.int32, device=dev)
 
     def add_region_growing(self, rg) -> None:
+        self.graph_trunc = self.graph_trunc + rg.graph_trunc
         self.points.append(torch.where(rg.point_prop >= 0, rg.point_prop + self.id_offset,
                                        torch.full_like(rg.point_prop, -1)))
         self.valid.append(rg.prop_valid)
@@ -418,6 +502,9 @@ def _region_grow(cfg: PanopticConfig, grow_pos, pred, batch, thing, timer):
             num_samples=cfg.num_samples,
             point_cap=cfg.resolved_point_cap(grow_pos.shape[0]),
             min_cluster_size=cfg.min_cluster_size,
+            k_neighbors=cfg.rg_k_neighbors,
+            cell_cap=cfg.rg_cell_cap,
+            dense_pull=cfg.rg_dense_enabled,
         )
 
 
@@ -432,7 +519,9 @@ def _ms_labels(ms, percap: int):
 def build_proposals(cfg: PanopticConfig, pos, offsets, embeds, sem_logp, batch, valid,
                     timer=None, subset_seed=None):
     """Run the configured cluster sources and assemble the membership table
-    (``num_sources`` blocks of N rows). Returns (proposals, cluster_overflow).
+    (``num_sources`` blocks of N rows). Returns (proposals, cluster_overflow,
+    graph_trunc): thing rows past the clustering budgets, and rows whose
+    radius-graph edges region growing's edge path truncated.
     ``timer(name)``, when given, wraps the region growing, the mean shift
     and HDBSCAN. ``subset_seed`` (embed family): the counter of the random
     dimension subsets, an int or one int per sample (see
@@ -468,7 +557,7 @@ def build_proposals(cfg: PanopticConfig, pos, offsets, embeds, sem_logp, batch, 
                             max_seeds=cfg.ms_max_seeds)
         blocks.add_per_sample(*_ms_labels(ms, cfg.ms_max_clusters), cfg.ms_max_clusters,
                               src_row)
-    return blocks.proposals(), overflow
+    return blocks.proposals(), overflow, blocks.graph_trunc
 
 
 def _subset_seeds(cfg: PanopticConfig, subset_seed) -> Optional[np.ndarray]:
@@ -585,7 +674,7 @@ def _embed_proposals(cfg: PanopticConfig, pos, embeds, pred, batch, thing, subse
         lab, ncl = lab.reshape(runs, b, cap), ncl.reshape(runs, b)
         for li in range(runs):
             blocks.add_per_sample(lab[li], ncl[li], percap, src_row)
-    return blocks.proposals(), overflow
+    return blocks.proposals(), overflow, blocks.graph_trunc
 
 
 def scorer_inputs(cfg: PanopticConfig, props: Proposals, coords, backbone_feats):
@@ -624,13 +713,17 @@ def scorer_inputs(cfg: PanopticConfig, props: Proposals, coords, backbone_feats)
 
 def panoptic_losses(cfg: PanopticConfig, out: PanopticOutput, labels_y, vote_label,
                     instance_labels, instance_mask, batch, valid,
-                    class_weights: torch.Tensor | None = None
+                    class_weights: torch.Tensor | None = None, epoch: Optional[int] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The total loss and its terms (the JAX package's ``panoptic_losses``
-    without the mask branch): semantic NLL, offset norm and direction (with
-    an offset head), discriminative embedding, with proposals and scores
-    the IoU loss of the scores, and the backbone's internal losses as
-    ``<name>_loss``; the overflow counters ride along as f32 metrics."""
+    """The total loss and its terms (the JAX package's ``panoptic_losses``):
+    semantic NLL, offset norm and direction (with an offset head),
+    discriminative embedding, with proposals and scores the IoU loss of the
+    scores, with mask logits the mask loss, and the backbone's internal
+    losses as ``<name>_loss``; the overflow and graph-truncation counters
+    ride along as f32 metrics. Where ``cal_iou_based_on_mask``'s epoch gate
+    is open (:meth:`PanopticConfig.gates`), the IoU targets count only the
+    members whose mask probability passes 0.5, and every member without a
+    scorer row."""
     losses = {"semantic_loss": semantic_nll_loss(out.semantic_logits, labels_y, valid,
                                                  class_weights)}
     total = cfg.w_semantic * losses["semantic_loss"]
@@ -644,12 +737,22 @@ def panoptic_losses(cfg: PanopticConfig, out: PanopticOutput, labels_y, vote_lab
     losses.update(disc)
     total = total + cfg.w_embed * disc["ins_loss"]
     if out.proposals is not None and out.cluster_scores is not None:
+        member_pass = None
+        if out.mask_scores is not None and cfg.gates(epoch)[1]:
+            member_pass = torch.sigmoid(out.mask_scores) > 0.5
+            if out.mask_row_valid is not None:
+                member_pass = member_pass | ~out.mask_row_valid
         ious = instance_iou(out.proposals, instance_labels, batch, cfg.num_samples,
-                            cfg.max_instances)
+                            cfg.max_instances, member_pass=member_pass)
         losses["score_loss"] = instance_iou_loss(ious, out.cluster_scores,
                                                  out.proposals.prop_valid,
                                                  cfg.min_iou_threshold, cfg.max_iou_threshold)
         total = total + cfg.w_score * losses["score_loss"]
+        if out.mask_scores is not None and cfg.mask_supervise:
+            losses["mask_loss"] = mask_loss(ious, out.proposals, torch.sigmoid(out.mask_scores),
+                                            instance_labels, cfg.max_instances,
+                                            member_scored=out.mask_row_valid)
+            total = total + cfg.w_mask * losses["mask_loss"]
     for name, val in (out.internal_losses or {}).items():
         # the deformable KPConv's regularizers (reference
         # collect_internal_losses, lambda-weighted into the loss)
@@ -659,5 +762,7 @@ def panoptic_losses(cfg: PanopticConfig, out: PanopticOutput, labels_y, vote_lab
         losses["scorer_overflow"] = out.scorer_overflow.float()
     if out.cluster_overflow is not None:
         losses["cluster_overflow"] = out.cluster_overflow.float()
+    if out.rg_graph_trunc is not None:
+        losses["rg_graph_trunc"] = out.rg_graph_trunc.float()
     losses["loss"] = total
     return total, losses

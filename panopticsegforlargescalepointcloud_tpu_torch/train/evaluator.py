@@ -67,6 +67,10 @@ def grouped_config(pcfg: PanopticConfig, capacity: int, g: int) -> PanopticConfi
     )
 
 
+# the forward's counters the evaluator sums over a scene (``last_overflow``)
+_COUNTERS = ("cluster_overflow", "scorer_overflow", "rg_graph_trunc")
+
+
 class FullSceneEvaluator:
     def __init__(
         self,
@@ -101,7 +105,7 @@ class FullSceneEvaluator:
         self.timer = timer
         self.fcfg = grouped_config(pcfg, capacity, self.group)
         self._fwd = make_eval_forward(self.fcfg, model, device=self.device, timer=timer)
-        self.last_overflow = {"cluster_overflow": 0, "scorer_overflow": 0}
+        self.last_overflow = dict.fromkeys(_COUNTERS, 0)
 
     def _phase(self, name):
         return self.timer(name) if self.timer is not None else contextlib.nullcontext()
@@ -116,7 +120,7 @@ class FullSceneEvaluator:
         """Predict every test file and write its report (and, with
         ``ply_output``, its PLYs) into ``out_dir``; returns the reports."""
         os.makedirs(out_dir, exist_ok=True)
-        self.last_overflow = {"cluster_overflow": 0, "scorer_overflow": 0}
+        self.last_overflow = dict.fromkeys(_COUNTERS, 0)
         reports = []
         for fi in range(len(self.dataset.files)):
             sem, ins, acc = self.predict(fi, th_merge, voting_runs)
@@ -201,7 +205,7 @@ class FullSceneEvaluator:
                 "sem": out.semantic_logits,
             }
             # no ScoreNet (use_score_net false, semantic certainty): no
-            # scorer overflow
+            # scorer overflow; no region growing: no graph truncation
             fetch.update({k: getattr(out, k) for k in self.last_overflow
                           if getattr(out, k) is not None})
             dev = device_part(out.proposals, out.cluster_scores, db.grid.capacity)

@@ -101,9 +101,12 @@ def canonicalize(coords, batch, mask, feats, pos, y, instance_labels, vote_label
 
 def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: DeviceBatch,
                      hier: Hierarchy, with_clustering: bool = True, momentum=0.1,
-                     timer: Optional[Callable] = None, subset_seed=None) -> PanopticOutput:
+                     timer: Optional[Callable] = None, subset_seed=None,
+                     epoch: Optional[int] = None) -> PanopticOutput:
     """Backbone + heads, then (``with_clustering``) proposals and their
-    scores: the ScoreNet's (``scorer_type`` "unet"), the semantic certainty
+    scores: the ScoreNet's (``scorer_type`` "unet", "encoder" or "mlp"; with
+    the mask head also each member's mask logit, gathered through its
+    scorer row, and whether it has one), the semantic certainty
     (``scorer_type`` "": the largest class probability of the members' mean
     log-probabilities) or none (``use_score_net`` false). The model's mode
     decides the BN statistics (``model.train()``: batch statistics, running
@@ -113,7 +116,9 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
     their gradient to the backbone. ``subset_seed``: the embed family's
     subset counter (:func:`..models.pointgroup3heads.build_proposals`).
     ``timer(name)``, when given, returns a context manager wrapped around
-    each phase."""
+    each phase. ``epoch``: the mask head's epoch gates
+    (:meth:`..models.pointgroup3heads.PanopticConfig.gates`; None opens
+    them)."""
     with _phase(timer, "backbone_heads"):
         x, sem, off, emb, internal = model.backbone_heads(db.feats, hier, momentum,
                                                           pos=db.pos)
@@ -121,10 +126,10 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
     if not with_clustering:
         return PanopticOutput(semantic_logits=sem, offset_logits=off, embed_logits=emb,
                               backbone_feats=x, internal_losses=internal)
-    props, cluster_overflow = build_proposals(
+    props, cluster_overflow, graph_trunc = build_proposals(
         cfg, db.pos, off.detach(), emb.detach(), sem.detach(), db.grid.batch, db.grid.mask,
         timer=timer, subset_seed=subset_seed)
-    scores = scorer_overflow = None
+    scores = scorer_overflow = member_mask = mask_row_valid = None
     if cfg.use_score_net and not cfg.scorer_type:
         # semantic certainty (the reference's _compute_score without a scorer)
         ok = props.member_valid & (props.prop_id >= 0)
@@ -135,9 +140,15 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
         scores = torch.where(props.prop_valid, scores, torch.zeros_like(scores))
     elif cfg.use_score_net:
         with _phase(timer, "scorenet"):
-            sg, shier, sfeats, _, scorer_overflow = scorer_inputs(cfg, props, db.grid.coords,
-                                                                  x)
-            scores = model.score(sfeats, shier, sg.batch, cfg.total_props, momentum)
+            sg, shier, sfeats, member_row, scorer_overflow = scorer_inputs(
+                cfg, props, db.grid.coords, x)
+            scores, mask_logits = model.score(sfeats, shier, sg.batch, cfg.total_props,
+                                              momentum, epoch)
+            if mask_logits is not None:
+                # a member dropped from the scorer grid has no row (-1): it
+                # must not borrow row 0's logit
+                mask_row_valid = member_row >= 0
+                member_mask = mask_logits[member_row.clamp(min=0).long()]
     return PanopticOutput(
         semantic_logits=sem,
         offset_logits=off,
@@ -145,21 +156,26 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
         backbone_feats=x,
         proposals=props,
         cluster_scores=scores,
+        mask_scores=member_mask,
+        mask_row_valid=mask_row_valid,
         scorer_overflow=scorer_overflow,
         cluster_overflow=cluster_overflow,
+        rg_graph_trunc=graph_trunc,
         internal_losses=internal,
     )
 
 
 def make_eval_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, device=None,
-                      timer: Optional[Callable] = None, with_clustering: bool = True):
+                      timer: Optional[Callable] = None, with_clustering: bool = True,
+                      epoch: Optional[int] = None):
     """Inference: ``fwd(arrays, subset_seed=None) -> (DeviceBatch,
     PanopticOutput)``, with ``arrays`` in the JAX package's ``batch_arrays``
     order. The embed family's random subsets take ``subset_seed`` (an int,
     or one per sample; 0 when not given); the other families ignore it.
     Runs on ``cuda`` unless ``device="cpu"``; moves the model there and runs
     it in eval mode. ``with_clustering=False`` stops after the heads (the
-    trainer's validation before the full phase)."""
+    trainer's validation before the full phase). ``epoch``: the mask head's
+    epoch gates, as in training at that epoch; None (serving) opens them."""
     dev = resolve_device(device)
     model.to(dev)
     embed = cfg.model_family == "embed"
@@ -172,7 +188,7 @@ def make_eval_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, device=No
             hier = build_hierarchy(db.grid, cfg.num_down, device=dev)
         seed = (0 if subset_seed is None else subset_seed) if embed else None
         return db, panoptic_forward(cfg, model, db, hier, with_clustering, timer=timer,
-                                    subset_seed=seed)
+                                    subset_seed=seed, epoch=epoch)
 
     return fwd
 
@@ -258,7 +274,7 @@ def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
                     optimizer: torch.optim.Optimizer, schedule: Schedule,
                     with_clustering: bool, grad_clip_value: float | None = None,
                     class_weights=None, device=None, timer: Optional[Callable] = None,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, epoch: Optional[int] = None):
     """``step(arrays, bn_momentum) -> metrics``: one forward in training
     mode, the losses, the backward and :func:`.optim.optimizer_step`: one
     optimizer update at ``schedule(count)``, or with ``grad_accum`` k > 1 one
@@ -269,7 +285,9 @@ def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
     ``cuda`` unless ``device="cpu"``; moves the model there.
     ``grad_clip_value`` clips each gradient element to [-v, v].
     ``timer(name)``, when given, wraps each phase (hierarchy, backbone_heads,
-    region_growing, mean_shift, scorenet, losses, backward, optimizer)."""
+    region_growing, mean_shift, scorenet, losses, backward, optimizer).
+    ``epoch``: the mask head's epoch gates (None opens them); the trainer
+    builds one step per gate state."""
     dev = resolve_device(device)
     model.to(dev)
     cw = None if class_weights is None else torch.as_tensor(class_weights, dtype=torch.float32,
@@ -287,10 +305,11 @@ def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
         for p in params:
             p.grad = None
         out = panoptic_forward(cfg, model, db, hier, with_clustering, bn_momentum, timer,
-                               subset_seed=count)
+                               subset_seed=count, epoch=epoch)
         with _phase(timer, "losses"):
             total, losses = panoptic_losses(cfg, out, db.y, db.vote_label, db.instance_labels,
-                                            db.instance_mask, db.grid.batch, db.grid.mask, cw)
+                                            db.instance_mask, db.grid.batch, db.grid.mask, cw,
+                                            epoch)
         with _phase(timer, "backward"):
             total.backward()
         with torch.no_grad(), _phase(timer, "optimizer"):

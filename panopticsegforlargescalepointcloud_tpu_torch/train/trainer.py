@@ -4,7 +4,8 @@
 Wires dataset -> train steps -> validation -> checkpoint:
 
 * the epoch loop with the prepare -> full phase switch at ``prepare_epoch``
-  (two train steps, the full one with clustering and the ScoreNet);
+  (the full step with clustering and the ScoreNet, one per state of the
+  mask head's epoch gates, as is the validation forward);
 * per-epoch lr schedules, ReduceLROnPlateau on the monitored validation
   loss, gradient accumulation and the BN-momentum step decay;
 * validation epochs with semantic and, from the full phase on, instance
@@ -134,13 +135,14 @@ class Trainer:
         if self.tcfg.use_class_weights and hasattr(self.dataset, "class_weights"):
             cw = self.dataset.class_weights()
             log.info("weighted semantic NLL, class weights %s", np.round(cw, 3))
-        step_kwargs = dict(grad_clip_value=self.tcfg.grad_clip_value, class_weights=cw,
-                           device=self.device, grad_accum=self.tcfg.grad_accum)
+        self._step_kwargs = dict(grad_clip_value=self.tcfg.grad_clip_value, class_weights=cw,
+                                 device=self.device, grad_accum=self.tcfg.grad_accum)
         self._prepare_step = make_train_step(self.pcfg, self.model, self.optimizer,
-                                             self.lr_schedule, False, **step_kwargs)
-        self._full_step = make_train_step(self.pcfg, self.model, self.optimizer,
-                                          self.lr_schedule, True, **step_kwargs)
-        self._eval_fwd = make_eval_forward(self.pcfg, self.model, device=self.device)
+                                             self.lr_schedule, False, **self._step_kwargs)
+        # full steps and validation forwards by the mask head's gate state
+        # (at most four a run)
+        self._full_steps: Dict[tuple, object] = {}
+        self._eval_fwds: Dict[tuple, object] = {}
         self._eval_fwd_basic = make_eval_forward(self.pcfg, self.model, device=self.device,
                                                  with_clustering=False)
         # the JAX package draws an example batch here to initialize its
@@ -205,6 +207,26 @@ class Trainer:
         if self._prefetcher is not None:
             self._prefetcher.close()
 
+    def _full_step_for(self, epoch: int):
+        """The full step with the mask head's epoch gates as they stand at
+        ``epoch`` (the reference flips them when the epoch passes their
+        start epochs), built once per gate state."""
+        key = self.pcfg.gates(epoch)
+        if key not in self._full_steps:
+            self._full_steps[key] = make_train_step(self.pcfg, self.model, self.optimizer,
+                                                    self.lr_schedule, True, epoch=epoch,
+                                                    **self._step_kwargs)
+        return self._full_steps[key]
+
+    def _eval_fwd_for(self, epoch: int):
+        """The validation forward with clustering, its gates as the train
+        step's at ``epoch`` (keyed as :meth:`_full_step_for`)."""
+        key = self.pcfg.gates(epoch)
+        if key not in self._eval_fwds:
+            self._eval_fwds[key] = make_eval_forward(self.pcfg, self.model, device=self.device,
+                                                     epoch=epoch)
+        return self._eval_fwds[key]
+
     # ------------------------------------------------------------------
     def _collate_one_device(self, rng=None):
         rng = rng if rng is not None else self.rng
@@ -258,7 +280,8 @@ class Trainer:
         return self.state
 
     def _train_epoch(self, epoch: int, num_batches: int) -> Dict[str, float]:
-        step = self._full_step if epoch > self.pcfg.prepare_epoch else self._prepare_step
+        step = (self._full_step_for(epoch) if epoch > self.pcfg.prepare_epoch
+                else self._prepare_step)
         agg: Dict[str, float] = {}
         find_nbr = bool((self.cfg.get("debugging", {}) or {}).get("find_neighbour_dist"))
         nbr_stats: Dict[str, float] = {}
@@ -268,13 +291,14 @@ class Trainer:
                 if find_nbr and bi == 0:
                     # neighbour counts at the clustering radius on the first
                     # batch of the epoch
-                    from ..utils.debugging import NEIGHBOUR_K, neighbour_count_stats
+                    from ..utils.debugging import neighbour_count_stats
 
+                    kn = self.pcfg.rg_k_neighbors
                     stats = neighbour_count_stats(vb.pos, vb.batch, vb.mask,
-                                                  self.pcfg.cluster_radius, NEIGHBOUR_K,
+                                                  self.pcfg.cluster_radius, kn,
                                                   device=self.device)
-                    log.info("neighbour dist @ r=%.3g k=%d: %s", self.pcfg.cluster_radius,
-                             NEIGHBOUR_K, {k: round(v, 3) for k, v in stats.items()})
+                    log.info("neighbour dist @ r=%.3g k=%d: %s", self.pcfg.cluster_radius, kn,
+                             {k: round(v, 3) for k, v in stats.items()})
                     nbr_stats = stats
                 arrays = batch_arrays(vb)
             with self.timers.time("step"):
@@ -317,7 +341,7 @@ class Trainer:
                    with_instances: Optional[bool] = None) -> Dict[str, float]:
         if with_instances is None:
             with_instances = epoch > self.pcfg.prepare_epoch
-        fwd = self._eval_fwd if with_instances else self._eval_fwd_basic
+        fwd = self._eval_fwd_for(epoch) if with_instances else self._eval_fwd_basic
         cm = ConfusionMatrix(self.pcfg.num_classes)
         inst_metrics: List[tuple] = []
         ap_meter = InstanceAPMeter()

@@ -1,7 +1,8 @@
 """Port parity of region growing: the dense min pull (the plain version the
 CUDA kernel is held against) vs the JAX package's Pallas kernel in
 interpret mode and ``min_pull_xla``; converged components and
-``region_grow_folded`` (dense-pull branch) exactly equal to the JAX package.
+``region_grow_folded`` (dense-pull branch, and the edge path where the
+budget does not tile) exactly equal to the JAX package.
 
 Points are grid-quantized so that no pair distance lies near the radius:
 the matmul-form distance rounds differently from one formulation to the
@@ -89,9 +90,23 @@ def test_region_grow_folded_matches_jax(rng, n, point_cap):
     assert int(got.prop_valid.sum()) > 0
 
 
-def test_region_grow_needs_a_dense_budget():
-    pos = torch.zeros((4096, 3))
-    z = torch.zeros(4096, dtype=torch.int32)
-    with pytest.raises(ValueError, match="compaction budget"):
-        t_region_grow(pos, z, z, torch.ones(4096, dtype=torch.bool), radius=0.5,
-                      max_proposals=8, num_classes=3, num_samples=1, point_cap=1000)
+def test_region_grow_needs_a_dense_budget(rng):
+    """The dense pull needs a budget that tiles (a multiple of 2048); at
+    T = 1000 both packages take the edge path on the compacted rows
+    instead, with its k-nearest graph (whose truncations are counted)."""
+    n = 3000
+    pos = (0.25 * rng.integers(-12, 13, size=(n, 3))).astype(np.float32)
+    sem = rng.integers(1, 3, n).astype(np.int32)
+    batch = rng.integers(0, 2, n).astype(np.int32)
+    grow = rng.random(n) > 0.1
+    kw = dict(radius=RADIUS, max_proposals=64, num_classes=3, num_samples=2,
+              min_cluster_size=5, point_cap=1000, dense_pull=True)
+    assert not tdg.supports_dense(1000)
+    want = jax.jit(lambda *a: j_region_grow(*a, **kw))(
+        jnp.asarray(pos), jnp.asarray(sem), jnp.asarray(batch), jnp.asarray(grow))
+    got = t_region_grow(torch.from_numpy(pos), torch.from_numpy(sem),
+                        torch.from_numpy(batch), torch.from_numpy(grow), **kw)
+    for name in want._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    assert int(got.overflow) == int(grow.sum()) - 1000 and int(got.prop_valid.sum()) > 0

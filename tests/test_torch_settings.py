@@ -188,8 +188,6 @@ def check_eval_scores(case):
 
 def check_train_step_losses(case):
     jm, tm = case["jmetrics"], case["metrics"]
-    if "rg_graph_trunc" in jm:  # the port has only the dense path, which truncates nothing
-        assert float(jm.pop("rg_graph_trunc")) == 0
     assert set(tm) == set(jm)
     cfg = case["cfg"]
     assert ("offset_norm_loss" in tm) == cfg.has_offset
@@ -280,17 +278,29 @@ def test_configs_build_as_jax(family, types, num_samples):
     assert built > 0
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(mask_supervise=True), "mask_supervise"),
-    (dict(scorer_type="encoder"), "encoder"),
-    (dict(scorer_type="mlp"), "mlp"),
+@pytest.mark.parametrize("over,what", [
+    (["models.PointGroup-PAPER.mask_supervise=True",
+      "models.PointGroup-PAPER.use_mask_filter_score_feature=True",
+      "models.PointGroup-PAPER.cal_iou_based_on_mask=True",
+      "models.PointGroup-PAPER.cal_iou_based_on_mask_start_epoch=3",
+      "models.PointGroup-PAPER.loss_weights.mask_loss=0.5"], "mask_supervise"),
+    (["models.PointGroup-PAPER.scorer_type=encoder"], "encoder"),
+    (["models.PointGroup-PAPER.scorer_type=mlp"], "mlp"),
 ])
-def test_config_raises_only_for_missing_features(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        PanopticConfig(num_classes=9, stuff_classes=(0,), **kw)
-    for ok in (dict(model_family="embed", cluster_type=7), dict(use_score_net=False),
-               dict(scorer_type="")):
-        PanopticConfig(num_classes=9, stuff_classes=(0,), **ok)
+def test_scorer_variants_build_as_jax(over, what):
+    """The ScoreNet's other forms build from the flagship yaml and its
+    dotted overrides, equal to the JAX package's config field for field."""
+    over = ["models=panoptic/area4_ablation_3heads_5"] + over
+    cfg = panoptic_config_from_yaml(load_config(CONF_DIR, over))[0]
+    jcfg = j_config_from_yaml(j_load_config(CONF_DIR, over))[0]
+    for f in cfg.__dataclass_fields__:
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    if what == "mask_supervise":
+        assert cfg.has_mask_head and cfg.w_mask == 0.5
+        assert cfg.gates(3) == (False, False) and cfg.gates(4) == (False, True)
+        assert cfg.gates(None) == (True, True)
+    else:
+        assert cfg.scorer_type == what and not cfg.has_mask_head
 
 
 @pytest.mark.parametrize("models", ["area4_ablation_19", "area4_ablation_14",

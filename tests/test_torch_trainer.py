@@ -98,7 +98,8 @@ def runs(tmp_path_factory):
     build = jt._build_full
     jt._build_full = lambda epoch: _recorded(build(epoch), jsteps, lambda r: r[1])
     pt._prepare_step = _recorded(pt._prepare_step, psteps, lambda r: r)
-    pt._full_step = _recorded(pt._full_step, psteps, lambda r: r)
+    full_for = pt._full_step_for
+    pt._full_step_for = lambda epoch: _recorded(full_for(epoch), psteps, lambda r: r)
     jt.train()
     pt.train()
     pt.close()
@@ -115,11 +116,11 @@ def test_first_step_losses_match_jax(runs):
 
 
 def _shared(want, got):
-    """The JAX full step also reports ``rg_graph_trunc``, the edges its
-    region-growing edge path drops; on the dense path (the port's) it is 0."""
-    assert set(want) - set(got) <= {"rg_graph_trunc"} and set(got) <= set(want)
-    assert want.get("rg_graph_trunc", 0) == 0
-    return [k for k in want if k in got]
+    """Both report the same terms; ``rg_graph_trunc``, the rows whose edges
+    region growing's edge path truncated, is 0 on the dense path of both."""
+    assert set(want) == set(got)
+    assert want.get("rg_graph_trunc", 0) == got.get("rg_graph_trunc", 0) == 0
+    return list(want)
 
 
 def test_later_step_losses_match_jax(runs):

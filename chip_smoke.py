@@ -127,9 +127,27 @@
    eval CLI (a quarter in f32 against plain, the forest in bf16 at g = 2)
    and trained by the train CLI across its gates ("mask trainer" lines).
    "scorers and edges summary" gathers them.
-11. Prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
-   kernel's launches per path, ``settings``, ``point_backbones`` and
-   ``scorers_edges`` among them) and, last, the
+11. Drives the eleventh path, data parallelism over ``torch.distributed``
+   (``data_parallel_path``): two ranks share the card over gloo, started
+   by ``parallel.launch.spawn`` (a correctness run, not a scale-out
+   measurement), each with 4 tiles of the flagship batch (131,072 rows,
+   bf16, paper plan, seeded weights): 3 prepare + 2 full DP train steps
+   ("data parallel step" lines: ms, the all-reduce's ms, each rank's
+   launches of A, dX, D, B, B's tables and C, the replica checksums, which
+   must be equal after every step; peak memory per rank); one f32 DP full
+   step against its hand emulation on the card (each block's
+   single-device gradients and BN statistics averaged by hand, the same
+   clip and Adam update; weights, BN statistics and losses within 1e-5 of
+   their max |value|, under deterministic algorithms); the forest served
+   on the two-rank mesh from a port checkpoint against the sequential g =
+   1 scene (labels identical, reports equal; seconds per phase of both);
+   the trainer with ``training.num_devices`` 2 in the two ranks (1 epoch
+   of 4 steps, a validation, one checkpoint epoch, the batch draws timed);
+   then one DP prepare step in a one-rank NCCL group. "data parallel
+   summary" gathers them.
+12. Prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
+   kernel's launches per path, ``settings``, ``point_backbones``,
+   ``scorers_edges`` and ``data_parallel`` among them) and, last, the
    ``{"ok": true, "device": {...}}`` line. Every conv record goes to
    ``chiprun_out/conv_shapes.json``.
 
@@ -2270,6 +2288,442 @@ def scorers_edges_path(tmp: str, arrays, seed: int):
     return total, res, fails
 
 
+# --------------------------------------------------------------- data parallel
+
+
+class NamedTimer:
+    """Host clock, between device synchronizes, around the phases ``names``
+    only; every other phase runs as without a timer."""
+
+    def __init__(self, names):
+        self.names = set(names)
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        if name not in self.names:
+            yield
+            return
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
+def rank_arrays(stacked, rank: int, device):
+    """Block ``rank`` of the [D, ...] arrays as tensors on ``device``."""
+    import torch
+
+    return tuple(torch.from_numpy(np.ascontiguousarray(a[rank])).to(device) for a in stacked)
+
+
+def dp_train_steps(mesh, stacked, seed: int, n_prepare: int = 3, n_full: int = 2):
+    """This rank's data-parallel bf16 train steps of the flagship from the
+    JAX package's init (seeded, replicated): ``n_prepare`` prepare steps,
+    then ``n_full`` full steps (the first of each phase its warm-up); per
+    step the host ms, the all-reduce's ms, this rank's launches and the
+    replica checksum; per phase the peak memory."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import (
+        flagship_config,
+        flagship_training,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.parallel import (
+        make_parallel_train_step,
+        replica_checksum,
+        replicate,
+        shard_batch,
+    )
+
+    cfg = flagship_config(num_samples=4, compute_dtype="bfloat16")
+    state, schedule, tc = flagship_training(cfg, seed, device=mesh.device)
+    replicate(mesh, state.model)
+    arrays = shard_batch(mesh, stacked)
+    fails, steps, peak = [], [], {}
+    before_all = read_counts()
+    for phase, n, clustering in (("prepare", n_prepare, False), ("full", n_full, True)):
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n):
+            timer = NamedTimer(["all_reduce"])
+            step = make_parallel_train_step(cfg, state.model, state.optimizer, schedule, mesh,
+                                            clustering, tc.grad_clip_value, timer=timer,
+                                            grad_accum=tc.grad_accum)
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(arrays, state.bn_momentum)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: v - before[k] for k, v in read_counts().items()}
+            metrics = {k: float(v) for k, v in m.items()}
+            steps.append(dict(phase=phase, warmup=i == 0, ms=ms,
+                              all_reduce_ms=timer.ms.get("all_reduce"),
+                              launches={k: counts[k] for k in DP_KERNELS},
+                              loss=metrics["loss"], checksum=replica_checksum(state.model)))
+            bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+            if bad:
+                fails.append(f"rank {mesh.rank} DP {phase} step {i}: non-finite {bad}")
+            need = conv_kernels(cfg, backward=True) + (cluster_kernels(cfg) if clustering else [])
+            fails += [f"rank {mesh.rank} DP {phase} step {i}: kernel {k} not launched"
+                      for k in need if counts[k] <= 0]
+        peak[phase] = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: v - before_all[k] for k, v in read_counts().items()}
+    return dict(steps=steps, peak_mem_gib=peak), launches, fails
+
+
+def dp_f32_check(mesh, stacked, seed: int):
+    """One f32 data-parallel full step of the flagship with the kernels, and
+    on rank 0 its hand emulation: the single-device step's gradients and
+    BN statistics on each block (``make_loss_and_grads``), summed and
+    halved, then the same clip and optimizer math on the same start. Both
+    under PyTorch's deterministic algorithms (warnings of ops that have no
+    deterministic version are kept). Rank 0 returns each tensor's distance
+    over its max |value| (weights, BN statistics) and the losses' relative
+    distance; the other ranks return None."""
+    import warnings
+
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import (
+        flagship_config,
+        flagship_training,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.models import PointGroup3HeadsNet
+    from panopticsegforlargescalepointcloud_tpu_torch.parallel import (
+        make_parallel_train_step,
+        replicate,
+        shard_batch,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.parallel.mesh import bn_statistics
+    from panopticsegforlargescalepointcloud_tpu_torch.train import (
+        make_loss_and_grads,
+        make_optimizer,
+        optimizer_step,
+    )
+
+    cfg = flagship_config(num_samples=4, compute_dtype="float32")
+    state, schedule, tc = flagship_training(cfg, seed, device=mesh.device)
+    replicate(mesh, state.model)
+    start = {k: v.clone() for k, v in state.model.state_dict().items()}
+    mom = state.bn_momentum
+    with deterministic(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step = make_parallel_train_step(cfg, state.model, state.optimizer, schedule, mesh, True,
+                                        tc.grad_clip_value, grad_accum=tc.grad_accum)
+        got = {k: float(v) for k, v in step(shard_batch(mesh, stacked), mom).items()}
+        if not mesh.is_root:
+            return None
+        dev = mesh.device
+        grads, stats, losses = [], [], []
+        for s in range(mesh.size):
+            model = PointGroup3HeadsNet(cfg).to(dev)
+            model.load_state_dict(start)
+            met = make_loss_and_grads(cfg, model, True, device=dev)(
+                rank_arrays(stacked, s, dev), mom, None)
+            grads.append([p.grad.detach().clone() for p in model.parameters()])
+            stats.append([b.clone() for b in bn_statistics(model)])
+            losses.append({k: float(v) for k, v in met.items()})
+            del model
+        emu = PointGroup3HeadsNet(cfg).to(dev)
+        emu.load_state_dict(start)
+        opt = make_optimizer(tc.optimizer, emu.parameters(), tc.weight_decay)
+        with torch.no_grad():
+            for p, *gs in zip(emu.parameters(), *grads):
+                p.grad = sum(gs[1:], gs[0]) / mesh.size
+            if tc.grad_clip_value is not None:
+                torch.nn.utils.clip_grad_value_(list(emu.parameters()), tc.grad_clip_value)
+            optimizer_step(opt, schedule, tc.grad_accum)
+            for b, *ss in zip(bn_statistics(emu), *stats):
+                b.copy_(sum(ss[1:], ss[0]) / mesh.size)
+        torch.cuda.synchronize()
+    dp, em = state.model.state_dict(), emu.state_dict()
+    rel = {}
+    for k, v in dp.items():
+        scale = float(v.abs().max())
+        rel[k] = float((v - em[k]).abs().max()) / (scale if scale > 0 else 1.0)
+    stat_names = {k for k in dp if k.rsplit(".", 1)[-1] in ("mean", "var")}
+    want = {k: sum(l[k] for l in losses) / mesh.size for k in losses[0] if k != "hier_overflow"}
+    loss_rel = {k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()}
+    return dict(
+        weights_max_rel=max(v for k, v in rel.items() if k not in stat_names),
+        bn_max_rel=max(v for k, v in rel.items() if k in stat_names),
+        worst=sorted(rel.items(), key=lambda kv: -kv[1])[:3],
+        tensors=len(rel), identical=sum(v == 0 for v in rel.values()),
+        losses_max_rel=max(loss_rel.values()), loss=got["loss"],
+        nondeterministic_ops=sorted({str(w.message)[:120] for w in caught}))
+
+
+def dp_scene(mesh, tmp: str, ckpt: str, ply: str):
+    """The forest served from the port checkpoint ``ckpt`` through the eval
+    CLI's evaluator on the mesh (one tile per rank): one warm run, one run
+    timed per phase; then, on rank 0, the sequential scene at 1 tile per
+    dispatch of the same checkpoint, timed per phase, and its labels
+    against the mesh scene's."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import build_evaluator
+
+    args = [f"checkpoint_dir={ckpt}", f"data.files.test=[{ply}]", "tiles_per_dispatch=1"]
+    out = os.path.join(tmp, "dp_scene_mesh")
+    ev, run_kwargs, _, _ = build_evaluator(args, mesh=mesh)
+    ev.run(out_dir=out, **run_kwargs)  # warm
+    timer = PhaseTimer()
+    tev, _, _, _ = build_evaluator(args, timer=timer, mesh=mesh)
+    before = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = tev.run(out_dir=out, **run_kwargs)
+    torch.cuda.synchronize()
+    res = dict(mesh=dict(s_per_scene=time.perf_counter() - t0,
+                         phases_s={k: v / 1e3 for k, v in timer.ms.items()},
+                         tiles=len(tev.dataset.test_tiles(0))))
+    launches = {k: v - before[k] for k, v in read_counts().items()}
+    if not mesh.is_root:
+        return res, launches, []
+    seq_timer = PhaseTimer()
+    sev, _, _, _ = build_evaluator(args + [f"device={mesh.device}"], timer=seq_timer)
+    seq_out = os.path.join(tmp, "dp_scene_seq")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = sev.run(out_dir=seq_out, **run_kwargs)
+    torch.cuda.synchronize()
+    res["sequential_g1"] = dict(s_per_scene=time.perf_counter() - t0,
+                                phases_s={k: v / 1e3 for k, v in seq_timer.ms.items()})
+    (ms, mi), (ss, si) = scene_labels(out), scene_labels(seq_out)
+    res.update(points=len(ms), semantic_identical=float((ms == ss).mean()),
+               instance_identical=float((mi == si).mean()),
+               instance_partition_agreement=partition_agreement(mi, si),
+               instances=int(len(np.unique(mi[mi >= 0]))),
+               reports_equal=reps == seq, meanPQ=reps[0]["meanPQ"], mIoU=reps[0]["mIoU"])
+    fails = []
+    if res["semantic_identical"] != 1.0 or res["instance_identical"] != 1.0:
+        fails.append(f"mesh scene differs from the sequential g=1 scene: {res}")
+    if not reps == seq:
+        fails.append("mesh scene's report differs from the sequential one")
+    return res, launches, fails
+
+
+def dp_trainer(mesh, tmp: str, ply: str, val_ply: str):
+    """``cli/train.py:train`` in this rank: the root config's flagship with
+    ``training.num_devices`` 2 on the forest (val: its quarter), 1 epoch of
+    4 steps of 2 x 4 tiles, a validation; rank 0 checks one checkpoint
+    epoch and one ``metrics.jsonl`` line. Each batch draw (all D device
+    batches, in the prefetch threads) is timed."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cli.train import train
+    from panopticsegforlargescalepointcloud_tpu_torch.config import load_config
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import CONF_DIR
+    from panopticsegforlargescalepointcloud_tpu_torch.train import trainer as trainer_mod
+    from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
+
+    run_dir = os.path.join(tmp, "dp_run")
+    cfg = load_config(CONF_DIR, [
+        f"data.files.train=[{ply}]", f"data.files.val=[{val_ply}]", f"checkpoint_dir={run_dir}",
+        f"training.num_devices={mesh.size}", "training.epochs=1",
+        f"training.samples_per_epoch={4 * 4 * mesh.size}", "pretty_print=False"])
+    make_batch, draws = trainer_mod.Trainer._make_batch, []
+
+    def timed_batch(self, rng):
+        t = time.perf_counter()
+        out = make_batch(self, rng)
+        draws.append(time.perf_counter() - t)
+        return out
+
+    before = read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer_mod.Trainer._make_batch = timed_batch
+    t0 = time.perf_counter()
+    try:
+        summary = train(mesh, cfg, run_dir)
+    finally:
+        trainer_mod.Trainer._make_batch = make_batch
+    res = dict(s=time.perf_counter() - t0, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               draw_s=draws, **summary)
+    launches = {k: v - before[k] for k, v in read_counts().items()}
+    fails = [f"rank {mesh.rank} DP trainer: kernel {k} not launched"
+             for k in ("A", "A_dx", "D") if launches[k] <= 0]
+    if summary["steps_per_epoch"] != 4 or summary["step"] != 4:
+        fails.append(f"rank {mesh.rank} DP trainer: {summary}")
+    if mesh.is_root:
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            lines = [json.loads(line) for line in fh]
+        ck = ModelCheckpoint(run_dir)
+        res.update(metrics_lines=len(lines), start_epoch=ck.start_epoch,
+                   val=ck.stats["val"], loss=lines[-1].get("train_loss"),
+                   time_data=lines[-1].get("train_time_data"),
+                   time_step=lines[-1].get("train_time_step"))
+        if len(lines) != 1 or ck.start_epoch != 2 or len(ck.stats["val"]) != 1:
+            fails.append(f"DP trainer wrote {len(lines)} log lines, start epoch "
+                         f"{ck.start_epoch}, {len(ck.stats['val'])} validations")
+        if not math.isfinite(lines[-1].get("train_loss", float("nan"))):
+            fails.append(f"DP trainer: non-finite loss {lines[-1]}")
+    return res, launches, fails
+
+
+# kernels whose launches path 11 reports
+DP_KERNELS = ("A", "A_dx", "D", "B", "B_keys", "B_blocks", "B_cands", "C")
+
+
+def dp_rank(mesh, tmp: str, stacked, ckpt: str, ply: str, val_ply: str, seed: int):
+    """One rank of path 11 (two ranks sharing the card over gloo): the DP
+    train steps, the f32 check, mesh serving and the DP trainer. Returns
+    the records, the launches of the counted runs (steps, the timed mesh
+    scene, the trainer; not the f32 check, the warm scene or the
+    sequential scene) and the failures."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts()
+    total = {k: 0 for k in kernels()}
+    fails, res = [], dict(rank=mesh.rank, backend=mesh.backend, device=str(mesh.device))
+    for name, fn in (("steps", lambda: dp_train_steps(mesh, stacked, seed)),
+                     ("scene", lambda: dp_scene(mesh, tmp, ckpt, ply)),
+                     ("trainer", lambda: dp_trainer(mesh, tmp, ply, val_ply))):
+        t0 = time.perf_counter()
+        res[name], launches, f = fn()
+        res[f"{name}_wall_s"] = time.perf_counter() - t0
+        fails += f
+        for k in total:
+            total[k] += launches[k]
+        if name == "steps":
+            t0 = time.perf_counter()
+            res["f32"] = dp_f32_check(mesh, stacked, seed + 2)
+            res["f32_wall_s"] = time.perf_counter() - t0
+    return dict(res=res, launches=total, fails=fails)
+
+
+def nccl_rank(mesh, stacked, seed: int):
+    """One data-parallel prepare step of the flagship in a one-rank NCCL
+    group (the code path the NCCL backend runs; no second card here)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import (
+        flagship_config,
+        flagship_training,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.parallel import (
+        make_parallel_train_step,
+        replicate,
+        shard_batch,
+    )
+
+    cfg = flagship_config(num_samples=4, compute_dtype="bfloat16")
+    state, schedule, tc = flagship_training(cfg, seed, device=mesh.device)
+    replicate(mesh, state.model)
+    timer = NamedTimer(["all_reduce"])
+    step = make_parallel_train_step(cfg, state.model, state.optimizer, schedule, mesh, False,
+                                    tc.grad_clip_value, timer=timer, grad_accum=tc.grad_accum)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(shard_batch(mesh, stacked), state.bn_momentum)
+    torch.cuda.synchronize()
+    return dict(backend=mesh.backend, world_size=mesh.size, ms=(time.perf_counter() - t0) * 1e3,
+                all_reduce_ms=timer.ms.get("all_reduce"), loss=float(m["loss"]),
+                launches=read_counts())
+
+
+def data_parallel_path(tmp: str, seed: int):
+    """The eleventh path: data parallelism over ``torch.distributed``. Two
+    ranks share the card over gloo (started by ``parallel.launch.spawn``;
+    a correctness run, not a scale-out measurement): per rank 4 tiles of
+    the flagship batch (131,072 rows, bf16, paper plan; rank r's batch
+    from ``build_inputs(seed=r)``), 3 prepare + 2 full DP train steps
+    with equal replica checksums after every step; the f32 DP step against
+    its hand emulation (weights, BN statistics and losses within 1e-5 of
+    their max |value|); the forest served on the two-rank mesh against the
+    sequential g = 1 scene (labels identical); the DP trainer (1 epoch of 4
+    steps, a validation, one checkpoint). Then one DP prepare step in a
+    one-rank NCCL group. Returns (launches of the counted runs, summed over
+    the ranks, records, failures)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import (
+        build_inputs,
+        write_forest_scene,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.parallel import spawn
+
+    stacked = tuple(np.stack(p) for p in zip(build_inputs(seed=0), build_inputs(seed=1)))
+    ply, val_ply = os.path.join(tmp, "dp_forest.ply"), os.path.join(tmp, "dp_quarter.ply")
+    write_forest_scene(ply)
+    write_forest_scene(val_ply, quarter=True)
+    ckpt = os.path.join(tmp, "ckpt_dp")
+    serving_checkpoint(ckpt, seed)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t0 = time.perf_counter()
+    ranks = spawn(dp_rank, ["cuda:0", "cuda:0"], tmp, stacked, ckpt, ply, val_ply, seed,
+                  timeout_s=600)
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = spawn(nccl_rank, ["cuda:0"], tuple(a[:1] for a in stacked), seed, timeout_s=600)[0]
+    nccl_s = time.perf_counter() - t0
+    fails = [f for r in ranks for f in r["fails"]]
+    launches = {k: sum(r["launches"][k] for r in ranks) + nccl["launches"][k]
+                for k in kernels()}
+    card = card_line()
+    res = dict(card=card, ranks_on_one_card=2, gloo_wall_s=gloo_s, nccl_wall_s=nccl_s)
+    a, b = (r["res"] for r in ranks)
+    for i, (sa, sb) in enumerate(zip(a["steps"]["steps"], b["steps"]["steps"])):
+        row = dict(step=i, phase=sa["phase"], warmup=sa["warmup"],
+                   ms=[sa["ms"], sb["ms"]], all_reduce_ms=[sa["all_reduce_ms"], sb["all_reduce_ms"]],
+                   loss=sa["loss"], checksums_equal=sa["checksum"] == sb["checksum"],
+                   launches=[sa["launches"], sb["launches"]])
+        log("data parallel step", json.dumps(row))
+        if not row["checksums_equal"] or sa["loss"] != sb["loss"]:
+            fails.append(f"DP step {i}: replicas differ ({sa['checksum']} / {sb['checksum']})")
+    steps = a["steps"]["steps"]
+    if len(steps) != 5 or len(b["steps"]["steps"]) != 5:
+        fails.append(f"DP steps: {len(steps)} and {len(b['steps']['steps'])} of 5")
+    res["steps"] = {
+        phase: dict(ms_median=statistics.median(
+                        s["ms"] for r in (a, b) for s in r["steps"]["steps"]
+                        if s["phase"] == phase and not s["warmup"]),
+                    all_reduce_ms_median=statistics.median(
+                        s["all_reduce_ms"] for r in (a, b) for s in r["steps"]["steps"]
+                        if s["phase"] == phase and not s["warmup"]),
+                    peak_mem_gib=[r["steps"]["peak_mem_gib"][phase] for r in (a, b)])
+        for phase in ("prepare", "full")}
+    f32 = a["f32"]
+    log("data parallel f32 vs emulation", json.dumps(f32))
+    if max(f32["weights_max_rel"], f32["bn_max_rel"], f32["losses_max_rel"]) > 1e-5:
+        fails.append(f"DP f32 step vs hand emulation beyond 1e-5: {f32}")
+    res["f32"] = {k: f32[k] for k in ("weights_max_rel", "bn_max_rel", "losses_max_rel",
+                                      "identical", "tensors")}
+    scene = dict(a["scene"], rank1=b["scene"]["mesh"])
+    log("data parallel scene", json.dumps(scene))
+    res["scene"] = {k: scene[k] for k in ("semantic_identical", "instance_identical",
+                                          "instance_partition_agreement")}
+    res["scene"].update(mesh_s=scene["mesh"]["s_per_scene"],
+                        sequential_s=scene["sequential_g1"]["s_per_scene"])
+    trainer = dict(a["trainer"], rank1_s=b["trainer"]["s"],
+                   checksums_equal=a["trainer"]["checksum"] == b["trainer"]["checksum"])
+    log("data parallel trainer", json.dumps(trainer))
+    if not trainer["checksums_equal"]:
+        fails.append("DP trainer: replicas differ after the epoch")
+    res["trainer"] = {k: trainer[k] for k in ("s", "step", "metrics_lines", "start_epoch",
+                                              "checksums_equal", "peak_mem_gib")}
+    res["trainer"]["draw_s_median"] = [statistics.median(r["res"]["trainer"]["draw_s"])
+                                       for r in ranks]
+    log("nccl step", json.dumps(nccl))
+    if nccl["backend"] != "nccl" or not math.isfinite(nccl["loss"]):
+        fails.append(f"NCCL step: {nccl}")
+    fails += [f"NCCL step: kernel {k} not launched" for k in ("A", "A_dx", "D")
+              if nccl["launches"][k] <= 0]
+    res["nccl"] = {k: nccl[k] for k in ("backend", "ms", "all_reduce_ms", "loss")}
+    res["launches"] = {k: launches[k] for k in DP_KERNELS}
+    res["wall_s"] = {k: [r["res"][f"{k}_wall_s"] for r in ranks]
+                     for k in ("steps", "f32", "scene", "trainer")}
+    log("data parallel summary", json.dumps(res))
+    return launches, res, fails
+
+
 def main() -> int:
     import torch
 
@@ -2367,7 +2821,10 @@ def main() -> int:
         log(f"point backbones path done: {time.perf_counter() - t0:.1f} s")
         scorer_launches, _, f = scorers_edges_path(tmp, arrays, seed=5)
         fails += f
-    log(f"scorers and edges path done: {time.perf_counter() - t0:.1f} s")
+        log(f"scorers and edges path done: {time.perf_counter() - t0:.1f} s")
+        dp_launches, _, f = data_parallel_path(tmp, seed=5)
+        fails += f
+    log(f"data parallel path done: {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(OUT_DIR, "conv_shapes.json"), "w") as fh:
         json.dump({"train_step": conv_rows, "eval_tile": tile_rows}, fh, indent=0)
 
@@ -2388,13 +2845,15 @@ def main() -> int:
         # backward role of the same kernel
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
                    "trainer": trainer_launches[key], "settings": settings_launches[key],
-                   "point_backbones": point_launches[key], "scorers_edges": scorer_launches[key]}
+                   "point_backbones": point_launches[key], "scorers_edges": scorer_launches[key],
+                   "data_parallel": dp_launches[key]}
         if key == "A":
             by_path["train_steps_dx"] = train_launches["A_dx"]
             by_path["trainer_dx"] = trainer_launches["A_dx"]
             by_path["settings_dx"] = settings_launches["A_dx"]
             by_path["point_backbones_dx"] = point_launches["A_dx"]
             by_path["scorers_edges_dx"] = scorer_launches["A_dx"]
+            by_path["data_parallel_dx"] = dp_launches["A_dx"]
         if key in scene_launches:
             by_path["scene_eval"] = scene_launches[key]
         entries.append(dict(
@@ -2419,7 +2878,7 @@ def main() -> int:
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
                    "scene_eval": scene_launches[key], "trainer": trainer_launches[key],
                    "settings": settings_launches[key], "point_backbones": point_launches[key],
-                   "scorers_edges": scorer_launches[key]}
+                   "scorers_edges": scorer_launches[key], "data_parallel": dp_launches[key]}
         entries.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,

@@ -11,6 +11,12 @@ file into cylinders, runs the eval forward per dispatch of
 ``eval_manifest.json``, the Semantic/Instance_results_forEval PLYs and one
 ``Evaluation_<i>.txt`` PQ report per file, then prints the JSON reports.
 Runs on ``cuda`` unless ``device=cpu``; without a GPU it raises.
+
+``num_devices=D`` (D > 1) serves one tile per rank on D ranks
+(:mod:`..parallel`): the first D cards, refused beyond the visible ones, or
+D CPU ranks with ``device=cpu``; ``tiles_per_dispatch`` then defaults to 1
+(a mesh takes no other). Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` in
+the environment) the CLI joins that group; otherwise it starts the ranks.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Callable, List, Optional
 from ..config import explicit_overrides, load_config, panoptic_config_from_yaml
 from ..data import PanopticFileDataset
 from ..models import PointGroup3HeadsNet
+from ..parallel import launch
 from ..train.checkpoint import ModelCheckpoint
 from ..train.evaluator import FullSceneEvaluator, eval_tile_capacity
 
@@ -46,15 +53,14 @@ def model_config(run_cfg):
     return dataclasses.replace(pcfg, num_samples=1), spec
 
 
-def build_evaluator(overrides: List[str], timer: Optional[Callable] = None):
-    """(evaluator, run kwargs, out_dir, test files) from CLI overrides."""
+def build_evaluator(overrides: List[str], timer: Optional[Callable] = None, mesh=None):
+    """(evaluator, run kwargs, out_dir, test files) from CLI overrides;
+    with ``mesh`` (:class:`..parallel.Mesh`) this rank's evaluator of a
+    mesh."""
     cfg = load_config(CONF_DIR, overrides, root="eval.yaml")
     ckpt_dir = cfg.get("checkpoint_dir")
     if not ckpt_dir:
         raise SystemExit("checkpoint_dir=... is required")
-    if int(cfg.get("num_devices", 1)) > 1:
-        raise SystemExit("num_devices > 1 (mesh eval) is not in the PyTorch port yet "
-                         "(ROADMAP.md, slice 5)")
     ckpt = ModelCheckpoint(ckpt_dir)
     # the checkpoint's run config rebuilds the model; composed data-group
     # defaults must not clobber its dataset spec, only typed overrides do
@@ -81,10 +87,11 @@ def build_evaluator(overrides: List[str], timer: Optional[Callable] = None):
     model = PointGroup3HeadsNet(pcfg)
     weights = ckpt.get_weights(str(cfg.get("weight_name", "latest")))
     model.load_state_dict(weights["state_dict"], strict=True)
+    default_g = DEFAULT_TILES_PER_DISPATCH if mesh is None else 1
     evaluator = FullSceneEvaluator(
         pcfg, model, dataset, eval_tile_capacity(data),
-        tiles_per_dispatch=int(cfg.get("tiles_per_dispatch", DEFAULT_TILES_PER_DISPATCH)),
-        device=cfg.get("device"), timer=timer,
+        tiles_per_dispatch=int(cfg.get("tiles_per_dispatch", default_g)),
+        device=cfg.get("device"), timer=timer, mesh=mesh,
     )
     run_kwargs = dict(
         ply_output=bool(cfg.get("tracker_options", {}).get("make_submission", True)),
@@ -95,18 +102,47 @@ def build_evaluator(overrides: List[str], timer: Optional[Callable] = None):
     return evaluator, run_kwargs, str(cfg.get("out_dir", "eval_outputs")), files
 
 
+def evaluate(mesh, overrides: List[str]):
+    """Build the evaluator and run it; on a mesh, in every rank (rank 0
+    writes the files and returns the reports, the others return None)."""
+    evaluator, run_kwargs, out_dir, files = build_evaluator(overrides, mesh=mesh)
+    root = mesh is None or mesh.is_root
+    if root:
+        # manifest: eval index -> source file (evaluation_stats_FOR.py
+        # groups plots by forest region)
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "eval_manifest.json"), "w") as f:
+            json.dump({str(i): os.path.basename(p) for i, p in enumerate(files)}, f)
+    reports = evaluator.run(out_dir=out_dir, **run_kwargs)
+    if root:
+        print(json.dumps(reports, indent=2))
+    return reports
+
+
+def mesh_devices(num_devices: int, device) -> List:
+    """The ranks' devices for ``num_devices``; more than the visible cards
+    ends the CLI with the refusal."""
+    try:
+        return launch.visible_devices(num_devices, device)
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
+
+
 def main(argv: Optional[List[str]] = None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     overrides = [a for a in (sys.argv[1:] if argv is None else argv) if "=" in a]
-    evaluator, run_kwargs, out_dir, files = build_evaluator(overrides)
-    # manifest: eval index -> source file (evaluation_stats_FOR.py groups
-    # plots by forest region)
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "eval_manifest.json"), "w") as f:
-        json.dump({str(i): os.path.basename(p) for i, p in enumerate(files)}, f)
-    reports = evaluator.run(out_dir=out_dir, **run_kwargs)
-    print(json.dumps(reports, indent=2))
-    return reports
+    cfg = load_config(CONF_DIR, overrides, root="eval.yaml")
+    nd = int(cfg.get("num_devices", 1))
+    if nd == 1:
+        return evaluate(None, overrides)
+    devices = mesh_devices(nd, cfg.get("device"))
+    if launch.in_torchrun():
+        mesh = launch.from_env(devices)
+        try:
+            return evaluate(mesh, overrides)
+        finally:
+            launch.shutdown()
+    return launch.spawn(evaluate, devices, overrides)[0]
 
 
 if __name__ == "__main__":

@@ -18,6 +18,12 @@ there resumes from its checkpoint; else a new
 ``outputs/<job_name>/<job_name>-<model_name>-<timestamp>``. Without data
 files it trains on synthetic planted-instance tiles. Runs on ``cuda``
 unless ``device=cpu``; without a GPU it raises.
+
+``training.num_devices=D`` (D > 1; 0: every visible card) trains data
+parallel on D ranks (:mod:`..parallel`; ``batch_size`` per device): the
+first D cards, refused beyond the visible ones, or D CPU ranks with
+``device=cpu``. Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` in the
+environment) the CLI joins that group; otherwise it starts the ranks.
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ from typing import List, Optional
 import yaml
 
 from ..config import load_config
+from ..parallel import launch
 from ..train.trainer import Trainer
-from .eval import CONF_DIR
+from .eval import CONF_DIR, mesh_devices
 
 
 def run_dir_of(cfg) -> str:
@@ -45,28 +52,61 @@ def run_dir_of(cfg) -> str:
     return run_dir
 
 
-def main(argv: Optional[List[str]] = None) -> Trainer:
+def main(argv: Optional[List[str]] = None):
+    """The :class:`Trainer` after training on one device; on D ranks the
+    ranks' summaries (:func:`train`), or under ``torchrun`` this rank's."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     overrides = [a for a in (sys.argv[1:] if argv is None else argv) if "=" in a]
     cfg = load_config(CONF_DIR, overrides)
-    if cfg.get("pretty_print"):
-        print(yaml.dump({k: v for k, v in cfg.items() if k != "models"}))
-    run_dir = run_dir_of(cfg)
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config_composed.yaml"), "w") as f:
-        yaml.safe_dump(cfg, f, default_flow_style=None)
+    nd = int(cfg.get("training", {}).get("num_devices", 1))
+    devices = [cfg.get("device")] if nd == 1 else mesh_devices(nd, cfg.get("device"))
+    # under torchrun every rank runs this function: rank 0 names the run dir
+    mesh = launch.from_env(devices) if len(devices) > 1 and launch.in_torchrun() else None
+    try:
+        run_dir = run_dir_of(cfg)
+        if mesh is not None:
+            from ..parallel.mesh import broadcast_object
+
+            run_dir = broadcast_object(mesh, run_dir)
+        if mesh is None or mesh.is_root:
+            if cfg.get("pretty_print"):
+                print(yaml.dump({k: v for k, v in cfg.items() if k != "models"}))
+            os.makedirs(run_dir, exist_ok=True)
+            with open(os.path.join(run_dir, "config_composed.yaml"), "w") as f:
+                yaml.safe_dump(cfg, f, default_flow_style=None)
+        if len(devices) == 1:
+            return train(None, cfg, run_dir)
+        if mesh is not None:
+            return train(mesh, cfg, run_dir)
+        return launch.spawn(train, devices, cfg, run_dir)
+    finally:
+        if mesh is not None:
+            launch.shutdown()
+
+
+def train(mesh, cfg, run_dir: str):
+    """Build the trainer and train: the :class:`Trainer` on one device; on
+    a mesh, in every rank, this rank's summary (rank, mini-batches taken,
+    steps per epoch, start epoch, :func:`..parallel.replica_checksum`)."""
     trainer = Trainer(
         cfg,
         capacity=int(cfg.get("data", {}).get("voxel_capacity", 65536)),
         backbone=str(cfg.get("backbone", "paper")),
         checkpoint_dir=run_dir,
         device=cfg.get("device"),
+        mesh=mesh,
     )
     try:
         trainer.train()
     finally:
         trainer.close()
-    return trainer
+    if mesh is None:
+        return trainer
+    from ..parallel import replica_checksum
+
+    return dict(rank=mesh.rank, step=trainer.state.step,
+                steps_per_epoch=trainer.steps_per_epoch, start_epoch=trainer.start_epoch,
+                checksum=replica_checksum(trainer.model))
 
 
 if __name__ == "__main__":

@@ -93,6 +93,12 @@ def collate_tiles(
     )
 
 
+def stack_device_batches(batches: List[VoxelBatch]) -> VoxelBatch:
+    """Stack per-device batches along a new leading [D] axis (one entry per
+    rank of a data-parallel mesh)."""
+    return VoxelBatch(*[np.stack(arrs) for arrs in zip(*batches)])
+
+
 def batch_arrays(vb: VoxelBatch) -> Tuple[np.ndarray, ...]:
     """The positional array tuple the eval forward and train step consume
     (the JAX package's ``train/step.py:batch_arrays`` order)."""

@@ -47,6 +47,24 @@ def device_part(props: Proposals, scores: Optional[torch.Tensor], num_points: in
     return out
 
 
+# the forward's counters the evaluator sums over a scene
+COUNTERS = ("cluster_overflow", "scorer_overflow", "rg_graph_trunc")
+
+
+def dispatch_outputs(db, out) -> Dict[str, torch.Tensor]:
+    """The device tensors one dispatch's tiles need on the host: the
+    canonical rows' mask, sample and origin, the semantic logits, the
+    forward's counters (those it has: no ScoreNet, no scorer overflow; no
+    region growing, no graph truncation) and :func:`device_part` under
+    ``p_`` names."""
+    fetch = {"mask": db.grid.mask, "batch": db.grid.batch, "origin": db.origin_id,
+             "sem": out.semantic_logits}
+    fetch.update({k: getattr(out, k) for k in COUNTERS if getattr(out, k) is not None})
+    dev = device_part(out.proposals, out.cluster_scores, db.grid.capacity)
+    fetch.update({"p_" + k: v for k, v in dev.items()})
+    return fetch
+
+
 def host_part(h: Dict[str, np.ndarray], tile: Optional[int] = None,
               nms_threshold: float = 0.3, min_cluster_points: int = 100,
               min_score: float = 0.5) -> Tuple[List[np.ndarray], List[int]]:

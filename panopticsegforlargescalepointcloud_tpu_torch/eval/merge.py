@@ -16,8 +16,7 @@ Semantics of the reference tracker's test path
 
 All host-side numpy + scipy cKDTree (this is out of the training hot path;
 the reference also runs it on host). A copy of the JAX package's
-``eval/merge.py`` without ``block_merging_by_score``, which its pipeline
-does not call.
+``eval/merge.py``; like there, no pipeline calls ``block_merging_by_score``.
 """
 
 from __future__ import annotations
@@ -121,6 +120,57 @@ def block_merging(
                 max_instance += 1
                 label_counts[max_instance] += not_old.size
     return all_pre_ins, max_instance
+
+
+def block_merging_by_score(
+    all_clusters: List[np.ndarray],
+    all_scores: Optional[np.ndarray],
+    new_clusters: List[np.ndarray],
+    new_scores: Optional[np.ndarray],
+    full_pos: np.ndarray,
+    tile_full_ids: np.ndarray,
+    tile_sub_ids: np.ndarray,
+    nms_threshold: float = 0.3,
+) -> Tuple[List[np.ndarray], Optional[np.ndarray]]:
+    """Score-ordered NMS merge - the reference's alternative merger
+    (``panoptic_tracker_pointgroup_treeins.py:493-562``; present but not
+    enabled in its pipeline, the call at :287 is commented out).
+
+    Scene state is a list of full-res clusters + scores; a new tile's
+    clusters are 1-NN-projected to full resolution, appended, and the pool is
+    pruned by greedy score-ordered NMS at IoU ``nms_threshold``. (The
+    reference computes IoU only between index-adjacent proposal pairs - an
+    artifact of its abandoned loop; here the IoU is the true pairwise one.)
+    """
+    if not new_clusters:
+        return all_clusters, all_scores
+    tree = cKDTree(full_pos[tile_sub_ids])
+    _, nn = tree.query(full_pos[tile_full_ids], k=1, workers=-1)
+    projected = []
+    for cl in new_clusters:
+        sel = np.isin(nn, cl)
+        projected.append(tile_full_ids[sel])
+    pool = list(all_clusters) + projected
+    if all_scores is None:
+        scores = np.asarray(new_scores, np.float64)
+    else:
+        scores = np.concatenate([np.asarray(all_scores), np.asarray(new_scores)])
+    order = np.argsort(-scores)
+    kept: List[int] = []
+    kept_sets: List[np.ndarray] = []
+    for idx in order:
+        c = pool[idx]
+        ok = True
+        for kc in kept_sets:
+            inter = np.intersect1d(c, kc, assume_unique=False).size
+            union = c.size + kc.size - inter
+            if union and inter / union > nms_threshold:
+                ok = False
+                break
+        if ok:
+            kept.append(idx)
+            kept_sets.append(c)
+    return [pool[i] for i in kept], scores[kept]
 
 
 class SceneAccumulator:

@@ -6,12 +6,13 @@ from .step import (
     init_params,
     init_state,
     make_eval_forward,
+    make_loss_and_grads,
     make_train_step,
     panoptic_forward,
 )
 
 __all__ = [
     "DeviceBatch", "TrainState", "canonicalize", "init_params", "init_state",
-    "make_eval_forward", "make_lr_schedule", "make_optimizer", "make_train_step",
-    "optimizer_step", "panoptic_forward",
+    "make_eval_forward", "make_loss_and_grads", "make_lr_schedule", "make_optimizer",
+    "make_train_step", "optimizer_step", "panoptic_forward",
 ]

@@ -7,6 +7,11 @@ order, semantic vote accumulation and NMS'd clusters -> block merging into
 the raw cloud -> finalise (full-res projection, stuff masking, distance
 cutoff, min-size filter) -> PLY exports + the ``final_eval`` PQ report.
 
+On a data-parallel mesh (``mesh=``, one tile per rank and dispatch) every
+rank tiles the file and forwards its tile of each group of D; the outputs
+reach rank 0 on the host, which merges them in tile order, so that the
+scene equals the sequential one, and writes the reports and PLYs.
+
 Host work runs after each dispatch's forward, not under it: the port's
 forward synchronizes inside region growing and mean shift, so the JAX
 package's one-deep pipeline would not hide it.
@@ -26,7 +31,7 @@ import numpy as np
 from ..data import PanopticFileDataset, batch_arrays, collate_tiles
 from ..data.ply import to_eval_ply, to_ins_ply
 from ..device import resolve_device
-from ..eval.extract import device_part, host_part, pull
+from ..eval.extract import COUNTERS, dispatch_outputs, host_part, pull
 from ..eval.merge import SceneAccumulator
 from ..eval.panoptic_quality import final_eval
 from ..models.pointgroup3heads import PanopticConfig, PointGroup3HeadsNet
@@ -67,10 +72,6 @@ def grouped_config(pcfg: PanopticConfig, capacity: int, g: int) -> PanopticConfi
     )
 
 
-# the forward's counters the evaluator sums over a scene (``last_overflow``)
-_COUNTERS = ("cluster_overflow", "scorer_overflow", "rg_graph_trunc")
-
-
 class FullSceneEvaluator:
     def __init__(
         self,
@@ -81,6 +82,7 @@ class FullSceneEvaluator:
         tiles_per_dispatch: int = 1,
         device=None,
         timer: Optional[Callable] = None,
+        mesh=None,
     ):
         """``model`` carries its weights. ``tiles_per_dispatch`` = g: g
         tiles ride one forward as a g-sample batch; per-tile results equal
@@ -90,7 +92,13 @@ class FullSceneEvaluator:
         Runs on ``cuda`` unless ``device="cpu"``. ``timer(name)``, when
         given, wraps each phase: tiling, collate, the forward's own phases
         (hierarchy, backbone_heads, region_growing, mean_shift, scorenet),
-        extract (device IoU, the pull, NMS), merge, finalise, report."""
+        extract (device IoU, the pull, NMS), merge, finalise, report.
+
+        ``mesh`` (:class:`..parallel.Mesh`): one tile per rank through
+        :func:`..parallel.make_parallel_eval_forward`, on the mesh's device
+        (``device`` is not used); needs ``tiles_per_dispatch`` 1. Every
+        rank calls :meth:`run`; rank 0 returns the reports and writes the
+        files, the other ranks return None."""
         if pcfg.num_samples != 1:
             raise ValueError("full-scene eval takes a num_samples=1 config; "
                              "tiles_per_dispatch sets the batch")
@@ -101,11 +109,21 @@ class FullSceneEvaluator:
         self.dataset = dataset
         self.capacity = capacity
         self.group = max(int(tiles_per_dispatch), 1)
-        self.device = resolve_device(device)
+        self.mesh = mesh
         self.timer = timer
         self.fcfg = grouped_config(pcfg, capacity, self.group)
-        self._fwd = make_eval_forward(self.fcfg, model, device=self.device, timer=timer)
-        self.last_overflow = dict.fromkeys(_COUNTERS, 0)
+        if mesh is not None:
+            from ..parallel import make_parallel_eval_forward, replicate
+
+            if self.group != 1:
+                raise ValueError("a mesh serves one tile per rank: tiles_per_dispatch must be 1")
+            self.device = mesh.device
+            self._pfwd = make_parallel_eval_forward(pcfg, replicate(mesh, model), mesh,
+                                                    timer=timer)
+        else:
+            self.device = resolve_device(device)
+            self._fwd = make_eval_forward(self.fcfg, model, device=self.device, timer=timer)
+        self.last_overflow = dict.fromkeys(COUNTERS, 0)
 
     def _phase(self, name):
         return self.timer(name) if self.timer is not None else contextlib.nullcontext()
@@ -119,20 +137,25 @@ class FullSceneEvaluator:
     ) -> List[Dict[str, float]]:
         """Predict every test file and write its report (and, with
         ``ply_output``, its PLYs) into ``out_dir``; returns the reports."""
-        os.makedirs(out_dir, exist_ok=True)
-        self.last_overflow = dict.fromkeys(_COUNTERS, 0)
+        root = self.mesh is None or self.mesh.is_root
+        if root:
+            os.makedirs(out_dir, exist_ok=True)
+        self.last_overflow = dict.fromkeys(COUNTERS, 0)
         reports = []
         for fi in range(len(self.dataset.files)):
             sem, ins, acc = self.predict(fi, th_merge, voting_runs)
+            if not root:
+                continue
             with self._phase("report"):
                 reports.append(self._report(fi, self.dataset.raw_clouds[fi], sem, ins, acc,
                                             out_dir, ply_output))
-        return reports
+        return reports if root else None
 
     def predict(self, fi: int, th_merge: Optional[float] = None, voting_runs: int = 1):
         """(semantic, instance, accumulator) of test file ``fi``: per-point
         labels of its raw cloud after block merging (threshold ``th_merge``,
-        0.1 by default) and finalise."""
+        0.1 by default) and finalise. On a mesh every rank calls it; the
+        ranks but rank 0 get (None, None, None)."""
         th = 0.1 if th_merge is None else th_merge
         raw = self.dataset.raw_clouds[fi]
         acc = SceneAccumulator(raw["pos"], self.pcfg.num_classes)
@@ -143,6 +166,9 @@ class FullSceneEvaluator:
                 tiles = self.dataset.test_tiles(fi, grid_shift=vote / runs)
             if vote == 0:
                 log.info("file %d: %d tiles x %d votes", fi, len(tiles), runs)
+            if self.mesh is not None:
+                self._predict_mesh(acc, tiles, th, seed_base=vote * len(tiles))
+                continue
             g = self.group
             for start in range(0, len(tiles), g):
                 group = tiles[start:start + g]
@@ -158,6 +184,8 @@ class FullSceneEvaluator:
                 db, out = self._fwd(batch_arrays(vb),
                                     subset_seed=vote * len(tiles) + start + np.arange(g))
                 self._accumulate_dispatch(acc, db, out, [ids for _, ids in group], th)
+        if self.mesh is not None and not self.mesh.is_root:
+            return None, None, None
         with self._phase("finalise"):
             sem, ins = acc.finalise(
                 stuff_classes=self.pcfg.stuff_classes,
@@ -193,24 +221,35 @@ class FullSceneEvaluator:
                  fi, report["meanPQ"], report["F1"], report["mIoU"])
         return report
 
+    def _predict_mesh(self, acc, tiles, th, seed_base):
+        """One tile per rank and dispatch, groups of D tiles in order; the
+        last group pads with its last tile (computed, never accumulated).
+        Each tile's subset counter is ``seed_base`` + its index, as in the
+        sequential path. Rank 0 merges the gathered outputs in tile order."""
+        d, rank = self.mesh.size, self.mesh.rank
+        for start in range(0, len(tiles), d):
+            group = tiles[start:start + d]
+            padded = group + [group[-1]] * (d - len(group))
+            with self._phase("collate"):
+                vb = collate_tiles([padded[rank][0]], capacity=self.capacity, num_tiles=1)
+            outs = self._pfwd(batch_arrays(vb), subset_seed=seed_base + start + rank)
+            if outs is None:
+                continue
+            for host, (_, tile_full_ids) in zip(outs, group):
+                self._merge_host(acc, host, [tile_full_ids], th)
+
     def _accumulate_dispatch(self, acc, db, out, ids_list, th):
         """Pull one dispatch's outputs to the host in one copy and
         accumulate its real tiles in order (``ids_list``: per-tile
         full-cloud index arrays; padded repeat samples are skipped)."""
         with self._phase("extract"):
-            fetch = {
-                "mask": db.grid.mask,
-                "batch": db.grid.batch,
-                "origin": db.origin_id,
-                "sem": out.semantic_logits,
-            }
-            # no ScoreNet (use_score_net false, semantic certainty): no
-            # scorer overflow; no region growing: no graph truncation
-            fetch.update({k: getattr(out, k) for k in self.last_overflow
-                          if getattr(out, k) is not None})
-            dev = device_part(out.proposals, out.cluster_scores, db.grid.capacity)
-            fetch.update({"p_" + k: v for k, v in dev.items()})
-            host = pull(fetch)
+            host = pull(dispatch_outputs(db, out))  # one device-to-host copy
+        self._merge_host(acc, host, ids_list, th)
+
+    def _merge_host(self, acc, host, ids_list, th):
+        """NMS and block merging of one dispatch's pulled outputs
+        (:func:`..eval.extract.dispatch_outputs`), tile by tile."""
+        with self._phase("extract"):
             props = {k[2:]: v for k, v in host.items() if k.startswith("p_")}
             for k in self.last_overflow:
                 self.last_overflow[k] += int(host.get(k, 0))

@@ -270,60 +270,83 @@ def init_state(cfg: PanopticConfig, generator: torch.Generator, optimizer: str =
                       bn_momentum)
 
 
-def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
-                    optimizer: torch.optim.Optimizer, schedule: Schedule,
-                    with_clustering: bool, grad_clip_value: float | None = None,
-                    class_weights=None, device=None, timer: Optional[Callable] = None,
-                    grad_accum: int = 1, epoch: Optional[int] = None):
-    """``step(arrays, bn_momentum) -> metrics``: one forward in training
-    mode, the losses, the backward and :func:`.optim.optimizer_step`: one
-    optimizer update at ``schedule(count)``, or with ``grad_accum`` k > 1 one
-    update every k-th call with the mean of the k clipped gradients. The
-    weights, the optimizer state and the BN running statistics (these on
-    every call) are updated in place. ``metrics`` holds every loss term,
-    ``loss`` and ``hier_overflow`` as 0-dim tensors on the device. Runs on
-    ``cuda`` unless ``device="cpu"``; moves the model there.
-    ``grad_clip_value`` clips each gradient element to [-v, v].
-    ``timer(name)``, when given, wraps each phase (hierarchy, backbone_heads,
-    region_growing, mean_shift, scorenet, losses, backward, optimizer).
-    ``epoch``: the mask head's epoch gates (None opens them); the trainer
-    builds one step per gate state."""
+def make_loss_and_grads(cfg: PanopticConfig, model: PointGroup3HeadsNet, with_clustering: bool,
+                        class_weights=None, device=None, timer: Optional[Callable] = None,
+                        epoch: Optional[int] = None):
+    """``grads_of(arrays, bn_momentum, subset_seed) -> metrics``: the train
+    step's forward in training mode (BN running statistics updated in
+    place), its losses and backward, leaving every parameter's gradient in
+    ``p.grad``: a parameter off this phase's path (the ScoreNet in the
+    prepare step) gets a zero gradient, as under ``jax.grad``, so that the
+    optimizer updates every parameter at every step. ``metrics`` holds every
+    loss term, ``loss`` and ``hier_overflow`` as 0-dim tensors on the
+    device. ``subset_seed``: the embed family's subset counter (None: the
+    fixed subsets). :func:`make_train_step` and the data-parallel step
+    (:func:`..parallel.make_parallel_train_step`) finish it."""
     dev = resolve_device(device)
     model.to(dev)
     cw = None if class_weights is None else torch.as_tensor(class_weights, dtype=torch.float32,
                                                             device=dev)
     params = list(model.parameters())
 
-    def step(arrays, bn_momentum=0.1) -> Dict[str, torch.Tensor]:
+    def grads_of(arrays, bn_momentum, subset_seed) -> Dict[str, torch.Tensor]:
         model.train()
-        # the embed family's subsets are drawn from the count of
-        # mini-batches taken, as the JAX step passes ``state.step``
-        count = int(optimizer.param_groups[0].get("calls", 0))
         with torch.no_grad(), _phase(timer, "hierarchy"):
             db = canonicalize(*arrays, device=dev)
             hier = build_hierarchy(db.grid, cfg.num_down, device=dev)
         for p in params:
             p.grad = None
         out = panoptic_forward(cfg, model, db, hier, with_clustering, bn_momentum, timer,
-                               subset_seed=count, epoch=epoch)
+                               subset_seed=subset_seed, epoch=epoch)
         with _phase(timer, "losses"):
             total, losses = panoptic_losses(cfg, out, db.y, db.vote_label, db.instance_labels,
                                             db.instance_mask, db.grid.batch, db.grid.mask, cw,
                                             epoch)
         with _phase(timer, "backward"):
             total.backward()
-        with torch.no_grad(), _phase(timer, "optimizer"):
+        with torch.no_grad():
             for p in params:
-                # a parameter off this phase's path (the ScoreNet in the
-                # prepare step) gets a zero gradient, as under jax.grad: the
-                # optimizer updates every parameter at every step
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["hier_overflow"] = hier.overflow.sum()
+        return metrics
+
+    return grads_of
+
+
+def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
+                    optimizer: torch.optim.Optimizer, schedule: Schedule,
+                    with_clustering: bool, grad_clip_value: float | None = None,
+                    class_weights=None, device=None, timer: Optional[Callable] = None,
+                    grad_accum: int = 1, epoch: Optional[int] = None):
+    """``step(arrays, bn_momentum) -> metrics``: one forward in training
+    mode, the losses, the backward (:func:`make_loss_and_grads`) and
+    :func:`.optim.optimizer_step`: one optimizer update at
+    ``schedule(count)``, or with ``grad_accum`` k > 1 one update every k-th
+    call with the mean of the k clipped gradients. The weights, the
+    optimizer state and the BN running statistics (these on every call) are
+    updated in place. ``metrics`` holds every loss term, ``loss`` and
+    ``hier_overflow`` as 0-dim tensors on the device. Runs on ``cuda``
+    unless ``device="cpu"``; moves the model there. ``grad_clip_value``
+    clips each gradient element to [-v, v]. ``timer(name)``, when given,
+    wraps each phase (hierarchy, backbone_heads, region_growing,
+    mean_shift, scorenet, losses, backward, optimizer). ``epoch``: the mask
+    head's epoch gates (None opens them); the trainer builds one step per
+    gate state."""
+    grads_of = make_loss_and_grads(cfg, model, with_clustering, class_weights, device, timer,
+                                   epoch)
+    params = list(model.parameters())
+
+    def step(arrays, bn_momentum=0.1) -> Dict[str, torch.Tensor]:
+        # the embed family's subsets are drawn from the count of
+        # mini-batches taken, as the JAX step passes ``state.step``
+        count = int(optimizer.param_groups[0].get("calls", 0))
+        metrics = grads_of(arrays, bn_momentum, count)
+        with torch.no_grad(), _phase(timer, "optimizer"):
             if grad_clip_value is not None:
                 torch.nn.utils.clip_grad_value_(params, grad_clip_value)
             optimizer_step(optimizer, schedule, grad_accum)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["hier_overflow"] = hier.overflow.sum()
         return metrics
 
     return step

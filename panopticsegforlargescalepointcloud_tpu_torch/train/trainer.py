@@ -21,6 +21,19 @@ construction, then each batch), or, with ``num_workers > 0``, batch i from
 packages the same tiles. The model is initialized from a
 ``torch.Generator`` seeded with ``training.seed``. Runs on ``cuda`` unless
 ``device="cpu"``; without a GPU it raises.
+
+Data parallelism (``training.num_devices`` D > 1, ``batch_size`` per
+device): the trainer runs in every rank of a :class:`..parallel.Mesh` of D
+ranks (``mesh=``; the train CLI starts them). Each batch is D device
+batches drawn from the one stream in device order, as the JAX trainer
+draws them: every rank draws all D and keeps its own block. The steps are
+:func:`..parallel.make_parallel_train_step`. Validation runs on rank 0's
+replica alone, as the JAX trainer validates on a host copy of the
+replicated weights; the other ranks draw the same validation tiles (the
+stream stays aligned) and receive rank 0's metrics, so that the plateau
+controller steps alike everywhere. Only rank 0 writes the checkpoint, the
+run log and ``metrics.jsonl``; a resume loads on every rank and then
+replicates rank 0's weights.
 """
 
 from __future__ import annotations
@@ -33,7 +46,13 @@ import numpy as np
 import torch
 
 from ..config.schema import panoptic_config_from_yaml
-from ..data import PanopticFileDataset, batch_arrays, collate_tiles, synthetic_tile
+from ..data import (
+    PanopticFileDataset,
+    batch_arrays,
+    collate_tiles,
+    stack_device_batches,
+    synthetic_tile,
+)
 from ..device import resolve_device
 from ..eval.confusion import ConfusionMatrix
 from ..eval.extract import device_part, host_part, pull
@@ -71,9 +90,14 @@ class Trainer:
         backbone: str = "paper",
         checkpoint_dir: Optional[str] = None,
         device=None,
+        mesh=None,
         **budget_overrides,
     ):
-        self.device = resolve_device(device)
+        """``mesh``: this rank's :class:`..parallel.Mesh` when
+        ``training.num_devices`` asks for more than one device (its device
+        replaces ``device``)."""
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.cfg = cfg
         self.pcfg, self.spec, self.tcfg = panoptic_config_from_yaml(
             cfg, backbone=backbone, **budget_overrides
@@ -117,14 +141,19 @@ class Trainer:
             self.dataset = SyntheticTiles(self.spec)
             self.val_dataset = self.dataset
 
+        # data parallelism: batch_size is per device
         nd = self.tcfg.num_devices
-        if nd == 0:  # all local devices
+        if nd == 0:  # every visible device
             nd = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        if nd > 1:
-            raise NotImplementedError(
-                f"training on {nd} devices: data-parallel training is not in the PyTorch "
-                f"port yet (ROADMAP.md, slice 5)")
-        self.steps_per_epoch = max(self.tcfg.samples_per_epoch // self.tcfg.batch_size, 1)
+        if nd > 1 and mesh is None:
+            raise ValueError(f"training.num_devices={nd}: run the trainer in each rank of a "
+                             f"mesh of {nd} ranks (cli.train starts them)")
+        if mesh is not None and mesh.size != max(nd, 1):
+            raise ValueError(f"training.num_devices={nd} on a mesh of {mesh.size} ranks")
+        self.num_devices = max(nd, 1)
+        self.is_root = mesh is None or mesh.is_root
+        global_batch = self.tcfg.batch_size * self.num_devices
+        self.steps_per_epoch = max(self.tcfg.samples_per_epoch // global_batch, 1)
         self.model = init_params(PointGroup3HeadsNet(self.pcfg),
                                  torch.Generator().manual_seed(self.tcfg.seed)).to(self.device)
         self.optimizer, self.lr_schedule, self.plateau = build_from_config(
@@ -136,9 +165,8 @@ class Trainer:
             cw = self.dataset.class_weights()
             log.info("weighted semantic NLL, class weights %s", np.round(cw, 3))
         self._step_kwargs = dict(grad_clip_value=self.tcfg.grad_clip_value, class_weights=cw,
-                                 device=self.device, grad_accum=self.tcfg.grad_accum)
-        self._prepare_step = make_train_step(self.pcfg, self.model, self.optimizer,
-                                             self.lr_schedule, False, **self._step_kwargs)
+                                 grad_accum=self.tcfg.grad_accum)
+        self._prepare_step = self._make_step(False)
         # full steps and validation forwards by the mask head's gate state
         # (at most four a run)
         self._full_steps: Dict[tuple, object] = {}
@@ -157,7 +185,7 @@ class Trainer:
             config=cfg,
             run_dir=checkpoint_dir or self.tcfg.checkpoint_dir or ".",
             tensorboard=bool(tb_cfg.get("log", False)),
-        )
+        ) if self.is_root else None
         self.timers = StageTimers()
         viz_cfg = cfg.get("visualization", {}) or {}
         self.visualizer = (
@@ -174,7 +202,7 @@ class Trainer:
             from ..data.prefetch import BatchPrefetcher
 
             self._prefetcher = BatchPrefetcher(
-                self._collate_one_device,
+                self._make_batch,
                 seed=self.tcfg.seed,
                 num_workers=self.tcfg.num_workers,
                 prefetch=max(2 * self.tcfg.num_workers, 4),
@@ -190,6 +218,10 @@ class Trainer:
                 self._load_weights("latest")
                 self.start_epoch = self.checkpoint.start_epoch
                 log.info("resumed from epoch %d", self.start_epoch)
+        if mesh is not None:
+            from ..parallel import replicate
+
+            replicate(mesh, self.model)
 
     def _load_weights(self, name: str):
         w = self.checkpoint.get_weights(name)
@@ -207,15 +239,24 @@ class Trainer:
         if self._prefetcher is not None:
             self._prefetcher.close()
 
+    def _make_step(self, with_clustering: bool, epoch: Optional[int] = None):
+        if self.mesh is None:
+            return make_train_step(self.pcfg, self.model, self.optimizer, self.lr_schedule,
+                                   with_clustering, device=self.device, epoch=epoch,
+                                   **self._step_kwargs)
+        from ..parallel import make_parallel_train_step
+
+        return make_parallel_train_step(self.pcfg, self.model, self.optimizer,
+                                        self.lr_schedule, self.mesh, with_clustering,
+                                        epoch=epoch, **self._step_kwargs)
+
     def _full_step_for(self, epoch: int):
         """The full step with the mask head's epoch gates as they stand at
         ``epoch`` (the reference flips them when the epoch passes their
         start epochs), built once per gate state."""
         key = self.pcfg.gates(epoch)
         if key not in self._full_steps:
-            self._full_steps[key] = make_train_step(self.pcfg, self.model, self.optimizer,
-                                                    self.lr_schedule, True, epoch=epoch,
-                                                    **self._step_kwargs)
+            self._full_steps[key] = self._make_step(True, epoch)
         return self._full_steps[key]
 
     def _eval_fwd_for(self, epoch: int):
@@ -233,10 +274,18 @@ class Trainer:
         tiles = [self.dataset.sample_train_tile(rng) for _ in range(self.tcfg.batch_size)]
         return collate_tiles(tiles, capacity=self.capacity, num_tiles=self.tcfg.batch_size)
 
+    def _make_batch(self, rng):
+        """One step's batch: one device batch, or on a mesh the D device
+        batches stacked on a leading axis, drawn in device order."""
+        if self.mesh is None:
+            return self._collate_one_device(rng)
+        return stack_device_batches([self._collate_one_device(rng)
+                                     for _ in range(self.num_devices)])
+
     def _next_batch(self):
         if self._prefetcher is not None:
             return next(self._prefetcher)
-        return self._collate_one_device(self.rng)
+        return self._make_batch(self.rng)
 
     def train(self, epochs: Optional[int] = None, batches_per_epoch: Optional[int] = None):
         epochs = epochs or self.tcfg.epochs
@@ -265,7 +314,7 @@ class Trainer:
             if self.visualizer is not None:
                 self.visualizer.begin_epoch(epoch)
             if epoch % self.tcfg.eval_frequency == 0:
-                val = self.eval_epoch(epoch, num_batches=max(nb // 10, 1))
+                val = self._validate(epoch, num_batches=max(nb // 10, 1))
                 stage_metrics["val"] = val
                 log.info("val: %s", {k: round(v, 4) for k, v in val.items()})
                 if self.plateau is not None:
@@ -273,7 +322,7 @@ class Trainer:
                     monitored = val.get("loss", val.get("semantic_loss"))
                     if monitored is not None:
                         apply_plateau_scale(self.optimizer, self.plateau.step(float(monitored)))
-            if self.checkpoint:
+            if self.checkpoint and self.is_root:
                 self.checkpoint.save_best_models_under_current_metrics(
                     {"state_dict": self.model.state_dict()}, self.optimizer.state_dict(),
                     stage_metrics)
@@ -290,17 +339,22 @@ class Trainer:
                 vb = self._next_batch()
                 if find_nbr and bi == 0:
                     # neighbour counts at the clustering radius on the first
-                    # batch of the epoch
+                    # batch of the epoch (on a mesh, device 0's)
                     from ..utils.debugging import neighbour_count_stats
 
                     kn = self.pcfg.rg_k_neighbors
-                    stats = neighbour_count_stats(vb.pos, vb.batch, vb.mask,
+                    flat = vb if self.mesh is None else type(vb)(*[a[0] for a in vb])
+                    stats = neighbour_count_stats(flat.pos, flat.batch, flat.mask,
                                                   self.pcfg.cluster_radius, kn,
                                                   device=self.device)
                     log.info("neighbour dist @ r=%.3g k=%d: %s", self.pcfg.cluster_radius, kn,
                              {k: round(v, 3) for k, v in stats.items()})
                     nbr_stats = stats
                 arrays = batch_arrays(vb)
+                if self.mesh is not None:
+                    from ..parallel import shard_batch
+
+                    arrays = shard_batch(self.mesh, arrays)
             with self.timers.time("step"):
                 # reading the metrics as floats waits for the device: the
                 # stage ends in a synchronize
@@ -312,8 +366,25 @@ class Trainer:
         opt_steps = self.state.step // max(self.tcfg.grad_accum, 1)
         out["lr"] = float(self.lr_schedule(opt_steps))
         out.update({f"time_{k}": v for k, v in self.timers.summary().items()})
-        self.logger.log({f"train_{k}": v for k, v in out.items()}, step=self.state.step)
+        if self.logger is not None:
+            self.logger.log({f"train_{k}": v for k, v in out.items()}, step=self.state.step)
         return out
+
+    def _validate(self, epoch: int, num_batches: int) -> Dict[str, float]:
+        """:meth:`eval_epoch`; on a mesh on rank 0 alone, while the other
+        ranks draw the same validation tiles, and its metrics on every
+        rank."""
+        if self.mesh is None:
+            return self.eval_epoch(epoch, num_batches)
+        from ..parallel.mesh import broadcast_object
+
+        if self.mesh.is_root:
+            val = self.eval_epoch(epoch, num_batches)
+        else:
+            for _ in self._val_batches(num_batches):
+                pass
+            val = None
+        return broadcast_object(self.mesh, val)
 
     # ------------------------------------------------------------------
     def _val_batches(self, num_batches: int):

@@ -1,1 +1,2 @@
-"""Host utilities: stage timers, the run log, neighbour-count diagnostics."""
+"""Host utilities: stage timers, the run log, neighbour-count diagnostics,
+geometry helpers (rotations, axis-aligned boxes)."""

@@ -75,6 +75,8 @@ def test_package_import_leaves_jax_unloaded():
         "import panopticsegforlargescalepointcloud_tpu_torch.utils.wandb_utils\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.models.point_backbones\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.ops.points\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.parallel\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.utils.geometry\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -89,6 +91,9 @@ def test_package_import_leaves_jax_unloaded():
     assert "panopticsegforlargescalepointcloud_tpu_torch.train.trainer" in mods
     assert "panopticsegforlargescalepointcloud_tpu_torch.models.point_backbones" in mods
     assert "panopticsegforlargescalepointcloud_tpu_torch.ops.points" in mods
+    assert "panopticsegforlargescalepointcloud_tpu_torch.parallel.mesh" in mods
+    assert "panopticsegforlargescalepointcloud_tpu_torch.parallel.launch" in mods
+    assert "panopticsegforlargescalepointcloud_tpu_torch.utils.geometry" in mods
 
 
 def _tiny_arrays():

@@ -27,7 +27,8 @@ Tolerances:
 Then the port alone: resume (``start_epoch`` and the step count as the JAX
 package sets them), the train CLI's ``config_composed.yaml`` (the text the
 JAX CLI writes) and its ``metrics.jsonl`` (one line per epoch, the JAX
-trainer's keys), the trainer's refusal of more than one device, the
+trainer's keys), the trainer's refusal of more than one device outside a
+mesh, the
 trainer, the train CLI and the learning run defaulting to the GPU; and the
 validation's PLY dumps (``Visualizer``) byte for byte against the JAX
 package's."""
@@ -219,7 +220,8 @@ def test_cli_train_run_dir_and_logs(tmp_path):
 def test_trainer_refuses_more_devices_and_defaults_to_gpu(tmp_path):
     cfg = _cfg()
     cfg["training"]["num_devices"] = 2
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    # more than one device runs in the ranks of a mesh (tests/test_torch_trainer_dp.py)
+    with pytest.raises(ValueError, match="each rank of a mesh of 2 ranks"):
         Trainer(cfg, capacity=4096, backbone="tiny", device="cpu", **BUDGETS)
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")

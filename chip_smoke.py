@@ -145,10 +145,31 @@
    of 4 steps, a validation, one checkpoint epoch, the batch draws timed);
    then one DP prepare step in a one-rank NCCL group. "data parallel
    summary" gathers them.
-12. Prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
+12. Drives the twelfth path, a reference torch-points3d checkpoint on the
+   card (``reference_import_path``): the flagship's seeded weights (paper
+   plan, in_feat 16, 9 classes) written in the reference's key layout
+   (MinkowskiEngine kernel order, the up modules' kernels reversed,
+   ``.bn.`` spellings, a ``num_batches_tracked`` per BN) with
+   ``conf/eval.yaml``'s composed config, imported by
+   ``cli/import_torch_checkpoint.py`` in a subprocess (seconds; every
+   tensor equal to the seeded one bit for bit, a strict load); the eval
+   forward on 131,072 rows from the imported checkpoint against the seeded
+   model, f32 and bf16 under deterministic algorithms (outputs identical,
+   A, B and C launched); a quarter of the forest at g = 2 in bf16 from an
+   imported checkpoint against a port checkpoint of the same weights
+   (labels identical, seconds per phase), then ``evaluation_stats_FOR.py
+   --dir`` on it; kernel A against cuDNN's ``conv3d``/``conv_transpose3d``
+   with TF32 off in the four forms an imported checkpoint runs (2 x 24^3
+   voxels, 16 -> 32, f32, within 1e-4 of max |want|); the lookup
+   hierarchy against the derived one on the flagship batch (identical at
+   every level, ms of both); the unfolded ``region_grow`` against
+   ``region_grow_folded`` on the edge path, on the forward's
+   region-growing rows at k_neighbors 64 and cell_cap 64 (identical,
+   ``graph_trunc`` 0 on both). "reference import summary" gathers them.
+13. Prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
    kernel's launches per path, ``settings``, ``point_backbones``,
-   ``scorers_edges`` and ``data_parallel`` among them) and, last, the
-   ``{"ok": true, "device": {...}}`` line. Every conv record goes to
+   ``scorers_edges``, ``data_parallel`` and ``reference_import`` among
+   them) and, last, the ``{"ok": true, "device": {...}}`` line. Every conv record goes to
    ``chiprun_out/conv_shapes.json``.
 
 Any failed phase ends the run with a non-zero exit code and no result line.
@@ -161,6 +182,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -1973,7 +1995,9 @@ def edge_iterations(found: list):
     (``cluster/region_grow.py:_grow_on_edges`` logs it at debug level)."""
     import logging
 
-    from panopticsegforlargescalepointcloud_tpu_torch.cluster import region_grow
+    # the module, which cluster/__init__.py shadows with its function region_grow
+    region_grow = importlib.import_module(
+        "panopticsegforlargescalepointcloud_tpu_torch.cluster.region_grow")
 
     class Handler(logging.Handler):
         def emit(self, record):
@@ -2724,6 +2748,456 @@ def data_parallel_path(tmp: str, seed: int):
     return launches, res, fails
 
 
+# ----------------------------------------------------------- reference import
+
+ME_SIDE, ME_SAMPLES, ME_CIN, ME_COUT = 24, 2, 16, 32
+
+
+def reference_run_config():
+    """The flagship's serving run config: ``conf/eval.yaml`` composed with
+    the flagship's data yaml (NPM3D, 9 classes), plain dicts."""
+    from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import CONF_DIR
+    from panopticsegforlargescalepointcloud_tpu_torch.config import load_config
+
+    return load_config(CONF_DIR, ["data=panoptic/npm3d-sparseconv_grid_012_R_16_cylinder_area1"],
+                       root="eval.yaml")
+
+
+def write_reference(path: str, model, run_config) -> None:
+    """A torch-points3d checkpoint of ``model``'s weights in the reference's
+    layout (``weights.reference_from_params``), as the reference saves it."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.weights import reference_from_params
+
+    torch.save({"models": {"latest": reference_from_params(model.state_dict())},
+                "run_config": run_config, "optimizer": None}, path)
+
+
+def import_cli(ref: str, out: str) -> float:
+    """The import CLI on ``ref`` in a subprocess; returns its seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "panopticsegforlargescalepointcloud_tpu_torch.cli.import_torch_checkpoint",
+                          ref, out], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, timeout=300)
+    s = time.perf_counter() - t0
+    for line in res.stdout.strip().splitlines()[-2:]:
+        log("reference import cli:", line)
+    if res.returncode != 0:
+        raise RuntimeError(f"import CLI exited {res.returncode}: {res.stdout[-2000:]}")
+    return s
+
+
+def tensors_identical(got, want):
+    """Names of the tensors of ``want`` that ``got`` lacks or holds with
+    another dtype or other bits, and the names ``got`` has beyond it."""
+    import torch
+
+    bad = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+           or not torch.equal(got[k], want[k])]
+    return bad + sorted(set(got) - set(want))
+
+
+def outputs_identical(a, b):
+    """The fields of two eval forwards' outputs that differ (heads,
+    proposals, scores; None fields must both be None)."""
+    import torch
+
+    diff = []
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if f == "proposals" and x is not None:
+            diff += [f"proposals.{g}" for g in x._fields
+                     if not torch.equal(getattr(x, g), getattr(y, g))]
+        elif isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and torch.equal(x, y)):
+                diff.append(f)
+        elif (x is None) != (y is None):
+            diff.append(f)
+    return diff
+
+
+def me_dense_grid(device):
+    """ME_SAMPLES samples of every voxel of [0, ME_SIDE)^3, canonical, and
+    its stride-2 coarsening."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.sparse import downsample, make_grid
+
+    n = ME_SIDE
+    xyz = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    coords = torch.from_numpy(np.tile(xyz, (ME_SAMPLES, 1)).astype(np.int32)).to(device)
+    batch = torch.from_numpy(np.repeat(np.arange(ME_SAMPLES), len(xyz)).astype(np.int32))
+    fine, _ = make_grid(batch.to(device), coords, torch.ones(len(coords), dtype=torch.bool,
+                                                               device=device))
+    coarse, _ = downsample(fine, ME_SAMPLES * (n // 2) ** 3)
+    return fine, coarse
+
+
+def me_kernel(wt, transpose: bool):
+    """A torch Conv3d [Cout, Cin, 3, 3, 3] (ConvTranspose3d [Cin, Cout, 3,
+    3, 3]) weight in MinkowskiEngine's layout [27, Cin, Cout], K enumerated
+    x-fastest by the offset ki - 1 of each axis."""
+    from panopticsegforlargescalepointcloud_tpu_torch.weights import me_kernel_offsets
+
+    import torch
+
+    offs = torch.as_tensor(me_kernel_offsets(3) + 1, device=wt.device).long()
+    w = wt[:, :, offs[:, 0], offs[:, 1], offs[:, 2]].permute(2, 0, 1)
+    return w.contiguous() if transpose else w.transpose(1, 2).contiguous()
+
+
+def me_parity(seed: int, device: str = "cuda"):
+    """Kernel A against cuDNN on a dense grid of ME_SAMPLES x ME_SIDE^3
+    voxels, Cin ME_CIN -> Cout ME_COUT, f32 with TF32 off on both sides, in
+    the four forms an imported checkpoint runs: the submanifold conv, the
+    stride-2 down conv, the stride-2 transpose and the stride-1 transpose
+    of an up module's ResBlock. The kernel comes from the torch weight by
+    the importer's rules (ME order permuted, an up module's K reversed);
+    within 1e-4 of max |want|. Returns (records, failures)."""
+    import torch
+    import torch.nn.functional as F
+
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.conv import sparse_conv
+    from panopticsegforlargescalepointcloud_tpu_torch.ops.sparse import (
+        down_map,
+        same_level_map,
+        up_map,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.weights import me_to_ours_perm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fine, coarse = me_dense_grid(dev)
+    n = ME_SIDE
+    perm = torch.as_tensor(me_to_ours_perm(3), device=dev)
+
+    def dense(grid, feats, side):
+        c, b = grid.coords[grid.mask].long(), grid.batch[grid.mask].long()
+        out = torch.zeros(ME_SAMPLES, feats.shape[1], side, side, side, device=dev)
+        out[b, :, c[:, 0], c[:, 1], c[:, 2]] = feats[grid.mask]
+        return out
+
+    def rows(grid, out):
+        c, b = grid.coords[grid.mask].long(), grid.batch[grid.mask].long()
+        return out[b, :, c[:, 0], c[:, 1], c[:, 2]]
+
+    forms = {  # (source grid, side, output grid, map, transpose, the dense op's keywords)
+        "submanifold": (fine, n, fine, same_level_map(fine), False, dict(padding=1)),
+        "down_stride2": (fine, n, coarse, down_map(fine, coarse), False,
+                         dict(stride=2, padding=1)),
+        "transpose_stride2": (coarse, n // 2, fine, up_map(fine, coarse), True,
+                              dict(stride=2, padding=1, output_padding=1)),
+        "transpose_stride1": (fine, n, fine, same_level_map(fine), True, dict(padding=1)),
+    }
+    recs, fails = [], []
+    for name, (src, side, dst, nbr, transpose, kw) in forms.items():
+        feats = torch.randn((src.capacity, ME_CIN), generator=gen, device=dev)
+        shape = (ME_CIN, ME_COUT, 3, 3, 3) if transpose else (ME_COUT, ME_CIN, 3, 3, 3)
+        wt = torch.randn(shape, generator=gen, device=dev) / math.sqrt(27 * ME_CIN)
+        w = me_kernel(wt, transpose)[perm]
+        w = w.flip(0).contiguous() if transpose else w.contiguous()
+        op = F.conv_transpose3d if transpose else F.conv3d
+        x = dense(src, feats, side)
+        got = sparse_conv(feats, nbr, w)[dst.mask]
+        want = rows(dst, op(x, wt, **kw))
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        rec = dict(form=name, voxels_in=int(src.mask.sum()), voxels_out=int(dst.mask.sum()),
+                   cin=ME_CIN, cout=ME_COUT, max_abs_err=err, scale=scale, tol=1e-4 * scale,
+                   ms=cuda_ms(lambda: sparse_conv(feats, nbr, w)),
+                   cudnn_dense_ms=cuda_ms(lambda: op(x, wt, **kw)),
+                   ok=got.shape == want.shape and err <= 1e-4 * scale)
+        recs.append(rec)
+        log("reference import ME parity", json.dumps(rec))
+        if not rec["ok"]:
+            fails.append(f"ME parity {name}: err {err} > {1e-4 * scale} or shapes "
+                         f"{tuple(got.shape)} / {tuple(want.shape)}")
+    return recs, fails
+
+
+def lookup_against_derived(db, num_down: int):
+    """The flagship batch's hierarchy built with ``map_mode="lookup"`` and
+    ``"derived"``: grids and every same, down and up map identical at every
+    level; ``unpack_coords(pack_coords(...))`` gives back every valid row's
+    batch and coordinates. Each build timed (median of 3, ms). Returns
+    (record, failures)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.ops import (
+        build_hierarchy,
+        pack_coords,
+        unpack_coords,
+    )
+
+    hier, ms = {}, {}
+    for mode in ("lookup", "derived"):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hier[mode] = build_hierarchy(db.grid, num_down, map_mode=mode)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[mode] = statistics.median(times)
+    a, b = hier["lookup"], hier["derived"]
+    fails = []
+    levels = a.num_levels
+    for lv in range(levels):
+        for f in ("coords", "batch", "keys", "mask"):
+            if not torch.equal(getattr(a.grids[lv], f), getattr(b.grids[lv], f)):
+                fails.append(f"lookup vs derived: grid {f} differs at level {lv}")
+        if not torch.equal(a.same_maps[lv], b.same_maps[lv]):
+            fails.append(f"lookup vs derived: same map differs at level {lv}")
+        g = a.grids[lv]
+        ub, uc = unpack_coords(pack_coords(g.batch, g.coords))
+        if not (torch.equal(ub[g.mask], g.batch[g.mask]) and torch.equal(uc[g.mask],
+                                                                        g.coords[g.mask])):
+            fails.append(f"unpack_coords(pack_coords()) differs at level {lv}")
+    for lv in range(levels - 1):
+        for kind in ("down_maps", "up_maps"):
+            if not torch.equal(getattr(a, kind)[lv], getattr(b, kind)[lv]):
+                fails.append(f"lookup vs derived: {kind[:-1]} differs at level {lv}")
+    rec = dict(levels=levels, hier_overflow=b.overflow.tolist(), lookup_ms=ms["lookup"],
+               derived_ms=ms["derived"],
+               valid_rows=[int(g.mask.sum()) for g in b.grids],
+               map_entries=int(sum(int((m >= 0).sum())
+                                   for m in b.same_maps + b.down_maps + b.up_maps)),
+               identical=not fails)
+    if any(b.overflow.tolist()):
+        fails.append(f"flagship hierarchy overflows: {rec['hier_overflow']}")
+    log("reference import lookup vs derived", json.dumps(rec))
+    return rec, fails
+
+
+def unfolded_region_growing(cfg, captured):
+    """``region_grow`` (the unfolded form: a per-sample graph, the class
+    filtered after it) against ``region_grow_folded`` on its edge path, on
+    the region-growing rows of an eval forward (its first call's T rows),
+    at k_neighbors 64 and cell_cap 64: every field identical and
+    ``graph_trunc`` 0 on both. Returns (record, failures)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cluster import (
+        region_grow,
+        region_grow_folded,
+    )
+
+    c = captured[0]
+    ids, valid, pos = c["ids"].to(torch.int32), c["valid"], c["pos"]
+    batch, sem = ids // cfg.num_classes, ids % cfg.num_classes
+    kw = dict(radius=cfg.cluster_radius, max_proposals=cfg.max_props_rg,
+              min_cluster_size=cfg.min_cluster_size, k_neighbors=64, cell_cap=64)
+    out, ms = {}, {}
+    for name, fn in (("unfolded", lambda: region_grow(pos, sem, batch, valid, **kw)),
+                     ("folded_edges", lambda: region_grow_folded(
+                         pos, sem, batch, valid, num_classes=cfg.num_classes,
+                         num_samples=cfg.num_samples, dense_pull=False, **kw))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    a, b = out["unfolded"], out["folded_edges"]
+    differ = [f for f in ("point_prop", "prop_valid", "prop_batch", "num_props")
+              if not torch.equal(getattr(a, f), getattr(b, f))]
+    rec = dict(rows=int(valid.sum()), t=int(valid.shape[0]), num_props=int(a.num_props),
+               grouped_rows=int((a.point_prop >= 0).sum()),
+               graph_trunc=[int(a.graph_trunc), int(b.graph_trunc)], ms=ms,
+               fields_differing=differ)
+    log("reference import unfolded region growing", json.dumps(rec))
+    fails = [f"unfolded region growing: {f} differs from the folded edge path" for f in differ]
+    if rec["graph_trunc"] != [0, 0]:
+        fails.append(f"unfolded region growing: the graph truncated rows {rec['graph_trunc']} "
+                     "(unfolded, folded)")
+    if rec["num_props"] <= 0:
+        fails.append("unfolded region growing: no proposals to compare")
+    return rec, fails
+
+
+def reference_scene(tmp: str, seed: int):
+    """A quarter of the forest through the eval CLI's path
+    (``build_evaluator``), bf16 at g = 2, from a checkpoint imported from a
+    reference file of seeded weights of ``conf/eval.yaml``'s model and from
+    a port checkpoint of the same weights (``min_score`` 0 in both run
+    configs, so that instances are kept): labels identical; seconds per
+    phase of both; then ``evaluation_stats_FOR.py --dir`` on the imported
+    checkpoint's output. Returns (record, failures)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cli import import_torch_checkpoint
+    from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import (
+        build_evaluator,
+        model_config,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import (
+        random_model,
+        serving_yaml,
+        write_forest_scene,
+    )
+
+    ply = os.path.join(tmp, "reference_quarter.ply")
+    points = write_forest_scene(ply, quarter=True)
+    port_ckpt = os.path.join(tmp, "ckpt_reference_port")
+    # min_score 0 keeps every cluster of the random weights (as scene_f32)
+    serving_checkpoint(port_ckpt, seed, min_score=0.0)
+    run_cfg = serving_yaml()
+    run_cfg["budget_overrides"] = {"min_score": 0.0}
+    ref = os.path.join(tmp, "reference_serving.pt")
+    write_reference(ref, random_model(model_config(run_cfg)[0], seed), run_cfg)
+    imported = os.path.join(tmp, "ckpt_reference_imported")
+    import_torch_checkpoint.main([ref, imported])
+    res, labels, fails = dict(points=points), {}, []
+    for name, ckpt in (("imported", imported), ("port", port_ckpt)):
+        out = os.path.join(tmp, f"reference_scene_{name}")
+        timer = PhaseTimer()
+        ev, run_kwargs, _, _ = build_evaluator([f"checkpoint_dir={ckpt}",
+                                                f"data.files.test=[{ply}]",
+                                                "tiles_per_dispatch=2"], timer=timer)
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "eval_manifest.json"), "w") as fh:
+            json.dump({"0": os.path.basename(ply)}, fh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with deterministic():
+            rep = ev.run(out_dir=out, **run_kwargs)[0]
+        torch.cuda.synchronize()
+        labels[name] = scene_labels(out)
+        res[name] = dict(s_per_scene=time.perf_counter() - t0,
+                         phases_s={k: v / 1e3 for k, v in timer.ms.items()},
+                         instances=int(len(np.unique(labels[name][1][labels[name][1] >= 0]))),
+                         meanPQ=rep["meanPQ"], mIoU=rep["mIoU"], F1=rep["F1"])
+    for i, kind in enumerate(("semantic", "instance")):
+        same = bool(np.array_equal(labels["imported"][i], labels["port"][i]))
+        res[f"{kind}_identical"] = same
+        if not same:
+            fails.append(f"reference scene: {kind} labels differ from the port checkpoint's")
+    if res["imported"]["instances"] <= 0:
+        fails.append("reference scene: no instances to compare")
+    if len(labels["imported"][0]) != points:
+        fails.append(f"reference scene: {len(labels['imported'][0])} labels for {points} points")
+    t0 = time.perf_counter()
+    stats = subprocess.run([sys.executable, os.path.join(ROOT, "evaluation_stats_FOR.py"),
+                            "--dir", os.path.join(tmp, "reference_scene_imported")], cwd=ROOT,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                           timeout=300)
+    total = [ln for ln in stats.stdout.splitlines() if ln.startswith("TOTAL")]
+    res["evaluation_stats_FOR"] = dict(rc=stats.returncode, s=time.perf_counter() - t0,
+                                       total=total[-1] if total else None)
+    if stats.returncode != 0 or not total:
+        fails.append(f"evaluation_stats_FOR.py --dir: rc {stats.returncode}: "
+                     f"{stats.stdout[-1500:]}")
+    log("reference import scene", json.dumps(res))
+    return res, fails
+
+
+def reference_import_path(tmp: str, arrays, seed: int):
+    """The twelfth path: a reference torch-points3d checkpoint of the
+    flagship (paper plan, in_feat 16, 9 classes, seeded weights and BN
+    statistics, the reference's key layout), through the import CLI and
+    served on the card. Phases: the round trip (the CLI in a subprocess;
+    the imported ``state_dict`` equal to the seeded one bit for bit and
+    loading strictly into the run config's model); the eval forward on
+    131,072 rows of ``build_inputs`` from the imported checkpoint against
+    the seeded model, f32 and bf16 under deterministic algorithms
+    (outputs identical; A, B and C launched); the scene
+    (:func:`reference_scene`); then, uncounted, kernel A against cuDNN in
+    the four forms (:func:`me_parity`), the lookup hierarchy against the
+    derived one (:func:`lookup_against_derived`) and the unfolded region
+    growing (:func:`unfolded_region_growing`). Returns (launches of the
+    forwards and the scene, records, failures)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.cli.eval import model_config
+    from panopticsegforlargescalepointcloud_tpu_torch.bench_cluster import (
+        captured_region_growing,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import (
+        flagship_config,
+        random_model,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.models import PointGroup3HeadsNet
+    from panopticsegforlargescalepointcloud_tpu_torch.train import canonicalize, make_eval_forward
+    from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
+
+    fails, res, t_path = [], {}, time.perf_counter()
+    # 1. round trip
+    seeded = random_model(flagship_config(num_samples=1), seed)
+    want = seeded.state_dict()
+    ref, out = os.path.join(tmp, "reference_flagship.pt"), os.path.join(tmp, "ckpt_reference")
+    t0 = time.perf_counter()
+    write_reference(ref, seeded, reference_run_config())
+    res["write_reference_s"] = time.perf_counter() - t0
+    res["reference_mib"] = os.path.getsize(ref) / 2**20
+    res["import_cli_s"] = import_cli(ref, out)
+    ck = ModelCheckpoint(out)
+    got = ck.get_weights("latest")["state_dict"]
+    bad = tensors_identical(got, want)
+    res["tensors"], res["tensors_differing"] = len(want), len(bad)
+    if bad:
+        fails.append(f"reference round trip: {len(bad)} tensors differ, e.g. {bad[:5]}")
+    PointGroup3HeadsNet(model_config(ck.run_config)[0]).load_state_dict(got, strict=True)
+    log("reference import round trip", json.dumps(res))
+
+    # 2. the eval forward from the imported checkpoint against the seeded model
+    reset_counts()
+    captured = []
+    for dt in ("float32", "bfloat16"):
+        cfg = flagship_config(num_samples=4, compute_dtype=dt)
+        outs, counts = {}, {}
+        make_eval_forward(cfg, random_model(cfg, seed))(arrays)  # warm-up
+        for name in ("imported", "seeded"):
+            model = PointGroup3HeadsNet(cfg)
+            model.load_state_dict(got if name == "imported" else want, strict=True)
+            fwd = make_eval_forward(cfg, model)
+            before = read_counts()
+            with deterministic(), (captured_region_growing(captured)
+                                   if dt == "bfloat16" and name == "imported"
+                                   else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                db, outs[name] = fwd(arrays)
+                torch.cuda.synchronize()
+            counts[name] = {k: v - before[k] for k, v in read_counts().items()}
+            res[f"forward_{dt}_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        differ = outputs_identical(outs["imported"], outs["seeded"])
+        res[f"forward_{dt}"] = dict(fields_differing=differ,
+                                    valid_proposals=int(outs["imported"].proposals.prop_valid.sum()),
+                                    launches={k: v for k, v in counts["imported"].items() if v})
+        fails += check_output(cfg, db, outs["imported"])
+        if differ:
+            fails.append(f"reference forward {dt}: imported differs from seeded in {differ}")
+        fails += [f"reference forward {dt}: kernel {k} not launched" for k in ("A", "B", "C")
+                  if counts["imported"][k] <= 0]
+        del outs
+        torch.cuda.empty_cache()
+    log("reference import forward", json.dumps({k: v for k, v in res.items()
+                                                if k.startswith("forward")}))
+    # 3. the scene
+    res["scene"], f = reference_scene(tmp, seed)
+    fails += f
+    launches = read_counts()
+
+    # uncounted: A against cuDNN, lookup maps, the unfolded region growing
+    res["me_parity"], f = me_parity(seed)
+    fails += f
+    cfg = flagship_config(num_samples=4, compute_dtype="bfloat16")
+    db = canonicalize(*arrays)
+    res["lookup_maps"], f = lookup_against_derived(db, cfg.num_down)
+    fails += f
+    res["unfolded_region_growing"], f = unfolded_region_growing(cfg, captured)
+    fails += f
+    res["launches"] = {k: v for k, v in launches.items() if v}
+    res["path_s"] = time.perf_counter() - t_path
+    res["card"] = card_line()
+    log("reference import summary", json.dumps(res))
+    return launches, res, fails
+
+
 def main() -> int:
     import torch
 
@@ -2824,7 +3298,10 @@ def main() -> int:
         log(f"scorers and edges path done: {time.perf_counter() - t0:.1f} s")
         dp_launches, _, f = data_parallel_path(tmp, seed=5)
         fails += f
-    log(f"data parallel path done: {time.perf_counter() - t0:.1f} s")
+        log(f"data parallel path done: {time.perf_counter() - t0:.1f} s")
+        ref_launches, _, f = reference_import_path(tmp, arrays, seed=5)
+        fails += f
+    log(f"reference import path done: {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(OUT_DIR, "conv_shapes.json"), "w") as fh:
         json.dump({"train_step": conv_rows, "eval_tile": tile_rows}, fh, indent=0)
 
@@ -2846,7 +3323,7 @@ def main() -> int:
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
                    "trainer": trainer_launches[key], "settings": settings_launches[key],
                    "point_backbones": point_launches[key], "scorers_edges": scorer_launches[key],
-                   "data_parallel": dp_launches[key]}
+                   "data_parallel": dp_launches[key], "reference_import": ref_launches[key]}
         if key == "A":
             by_path["train_steps_dx"] = train_launches["A_dx"]
             by_path["trainer_dx"] = trainer_launches["A_dx"]
@@ -2878,7 +3355,8 @@ def main() -> int:
         by_path = {"eval_forward": eval_launches[key], "train_steps": train_launches[key],
                    "scene_eval": scene_launches[key], "trainer": trainer_launches[key],
                    "settings": settings_launches[key], "point_backbones": point_launches[key],
-                   "scorers_edges": scorer_launches[key], "data_parallel": dp_launches[key]}
+                   "scorers_edges": scorer_launches[key], "data_parallel": dp_launches[key],
+                   "reference_import": ref_launches[key]}
         entries.append(dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import os
 import statistics
@@ -86,8 +87,9 @@ class PhaseTimer:
 def captured_region_growing(found: list):
     """Pass every ``dense_components`` call of region growing through and
     record its arguments."""
-    from panopticsegforlargescalepointcloud_tpu_torch.cluster import region_grow
-
+    # the module, which cluster/__init__.py shadows with its function region_grow
+    region_grow = importlib.import_module(
+        "panopticsegforlargescalepointcloud_tpu_torch.cluster.region_grow")
     dc0 = region_grow.dense_components
 
     def dc(pos, ids, valid, radius, init_labels, max_iters=64):

@@ -1,9 +1,10 @@
 """Region growing as connected components of the same-class radius graph.
 
-Counterpart of the JAX package's ``cluster/region_grow.py:region_grow_folded``.
-The class is folded into the id (``batch * C + class``), so only same-sample
-same-class rows connect. Two algorithms, chosen from the configuration and
-the static shape exactly as the JAX package chooses them:
+Counterpart of the JAX package's ``cluster/region_grow.py``.
+:func:`region_grow_folded`, which models run, folds the class into the id
+(``batch * C + class``), so only same-sample same-class rows connect. Two
+algorithms, chosen from the configuration and the static shape exactly as
+the JAX package chooses them:
 
 * the dense pull (``dense_pull`` with a compaction budget that tiles):
   eligible rows are compacted (stably) to T rows and
@@ -16,7 +17,9 @@ the static shape exactly as the JAX package chooses them:
   them outside any Pallas kernel).
 
 Both start from :func:`.neighbors.cell_seed_labels`; small components are
-dropped and roots get dense proposal ids.
+dropped and roots get dense proposal ids. :func:`region_grow`, for callers
+without a static class count, builds the graph per sample and drops the
+cross-class edges after it.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from ..ops.hashing import BitLayout
 from ..ops.scatter import scatter_drop, segment_sum
 from .dense_grow import dense_components, supports_dense
-from .neighbors import cell_seed_labels, radius_graph
+from .neighbors import DEFAULT_CELL_BITS, cell_seed_labels, radius_graph
 
 log = logging.getLogger(__name__)
 
@@ -54,6 +57,38 @@ def _fold_bits(num_ids: int) -> BitLayout:
     by = (rem - bz) // 2
     bx = rem - bz - by
     return BitLayout(bx, by, bz)
+
+
+def region_grow(
+    pos: torch.Tensor,
+    sem_class: torch.Tensor,
+    batch: torch.Tensor,
+    grow_mask: torch.Tensor,
+    radius: float,
+    max_proposals: int,
+    min_cluster_size: int = 10,
+    k_neighbors: int = 32,
+    cell_cap: int = 16,
+    max_iters: int = 64,
+) -> RegionGrowResult:
+    """Same-class radius components of the ``grow_mask`` rows, without a
+    static class count: the k-nearest radius graph of each sample, its
+    cross-class edges dropped in both directions, then the edge path's
+    propagation from every row's own label (no cell seeding: the seeds
+    would have to separate the classes). Where the budgets do not bind
+    (``graph_trunc`` 0) it groups as :func:`region_grow_folded`; the
+    candidates of other classes count against ``k_neighbors`` and
+    ``cell_cap`` here."""
+    fwd, rev, trunc = radius_graph(pos, batch, grow_mask, radius, k=k_neighbors,
+                                   cell_cap=cell_cap, bits=DEFAULT_CELL_BITS)
+
+    def same_class(e):
+        ok = (e >= 0) & (sem_class[e.clamp(min=0).long()] == sem_class[:, None])
+        return torch.where(ok, e, torch.full_like(e, -1))
+
+    r = _grow_on_edges(same_class(fwd), same_class(rev), batch, grow_mask, max_proposals,
+                       min_cluster_size, max_iters)
+    return r._replace(graph_trunc=trunc)
 
 
 def region_grow_folded(

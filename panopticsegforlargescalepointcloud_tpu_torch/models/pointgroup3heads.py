@@ -299,6 +299,10 @@ class Proposals(NamedTuple):
     prop_type: torch.Tensor  # [P] int32 source tag
 
     @property
+    def num_props(self) -> int:
+        return self.prop_valid.shape[0]
+
+    @property
     def budget(self) -> int:
         return self.point_idx.shape[0]
 

@@ -41,7 +41,11 @@ class SparseUNet(nn.Module):
             setattr(self, f"down_{i}", ResNetDown(ch, s, num_blocks, compute_dtype))
         for i, (ch, s) in enumerate(zip(up_channels, up_strides)):
             setattr(self, f"up_{i}", ResNetUp(ch, s, num_blocks, compute_dtype))
-        self.output_nc = up_channels[-1][1]
+        self.up_channels = tuple(up_channels)
+
+    @property
+    def output_nc(self) -> int:
+        return self.up_channels[-1][1]
 
     def forward(self, x: torch.Tensor, hier: Hierarchy, momentum=0.1) -> torch.Tensor:
         level = 0
@@ -106,7 +110,11 @@ class SparseEncoder(nn.Module):
         for i, (ch, s) in enumerate(zip(down_channels, down_strides)):
             setattr(self, f"down_{i}", ResNetDown(ch, s, num_blocks, compute_dtype))
         self.PointMLP_0 = PointMLP(down_channels[-1][1], global_nn)
-        self.output_nc = global_nn[-1]
+        self.global_nn = tuple(global_nn)
+
+    @property
+    def output_nc(self) -> int:
+        return self.global_nn[-1]
 
     def forward(self, x: torch.Tensor, hier: Hierarchy, momentum=0.1,
                 num_segments: int | None = None) -> torch.Tensor:

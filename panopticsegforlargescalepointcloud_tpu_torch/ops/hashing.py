@@ -8,7 +8,7 @@ carry ``INVALID_KEY = 0xFFFFFFFF``, which sorts after every valid key.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -59,6 +59,19 @@ def pack_coords(
         valid = valid & ~extra_invalid
     key = (b << (bx + by + bz)) | (x << (by + bz)) | (y << bz) | z
     return torch.where(valid, key, torch.full_like(key, INVALID_KEY))
+
+
+def unpack_coords(keys: torch.Tensor, bits: BitLayout = DEFAULT_BITS
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pack_coords`: (batch [N] int32, coords [N, 3]
+    int32). Invalid keys give arbitrary rows."""
+    bx, by, bz = bits.bx, bits.by, bits.bz
+    keys = keys.long()
+    z = (keys & ((1 << bz) - 1)) - (1 << (bz - 1))
+    y = ((keys >> bz) & ((1 << by) - 1)) - (1 << (by - 1))
+    x = ((keys >> (by + bz)) & ((1 << bx) - 1)) - (1 << (bx - 1))
+    b = keys >> (bx + by + bz)
+    return b.to(torch.int32), torch.stack([x, y, z], dim=-1).to(torch.int32)
 
 
 def lookup(sorted_keys: torch.Tensor, query_keys: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,5 @@
 """Multi-resolution sparse grid hierarchies (counterpart of the JAX
-package's ``ops/hierarchy.py`` with ``map_mode="derived"``, no bricks and no
-windowed maps).
+package's ``ops/hierarchy.py``, without bricks and windowed maps).
 
 Capacities are static per level; voxels past a level's capacity drop
 deterministically and are counted in ``overflow``.
@@ -18,9 +17,11 @@ from .sparse import (
     KERNEL_OFFSETS_K3,
     SparseGrid,
     derive_level_maps,
+    down_map_fine_side,
     downsample,
     same_level_map,
     slot_table_from_parent,
+    up_map_from_down,
 )
 
 
@@ -36,6 +37,10 @@ class Hierarchy(NamedTuple):
     up_maps: Tuple[torch.Tensor, ...]
     parents: Tuple[torch.Tensor, ...]
     overflow: torch.Tensor
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.grids)
 
 
 # Occupancy-matched capacity ratios per level (JAX package, measured decay of
@@ -58,9 +63,17 @@ def build_hierarchy(
     capacities: Tuple[int, ...] | None = None,
     bits: BitLayout = DEFAULT_BITS,
     device=None,
+    map_mode: str = "derived",
 ) -> Hierarchy:
-    """Grids + submanifold maps + strided maps for an L-level UNet. Only the
-    topmost level pays a sort-join lookup; every other map is derived."""
+    """Grids + submanifold maps + strided maps for an L-level UNet.
+
+    ``map_mode="derived"``: only the topmost level pays a sort-join lookup;
+    every other map is derived from the level above by index arithmetic.
+    ``"lookup"``: every level's maps by sort-join lookups (submanifold maps,
+    the down map from the fine side, the up map its transpose), the oracle
+    of the derived maps."""
+    if map_mode not in ("derived", "lookup"):
+        raise ValueError(f"map_mode must be 'derived' or 'lookup', got {map_mode!r}")
     grid0 = grid0.to(resolve_device(device))
     if capacities is None:
         capacities = default_capacities(grid0.capacity, num_down)
@@ -82,9 +95,13 @@ def build_hierarchy(
     up_maps = [None] * num_down
     same_maps[num_down] = same_level_map(grids[num_down], KERNEL_OFFSETS_K3, bits)
     for level in range(num_down - 1, -1, -1):
-        same_maps[level], down_maps[level], up_maps[level] = derive_level_maps(
-            grids[level], parents[level], slot_tables[level], same_maps[level + 1]
-        )
+        if map_mode == "derived":
+            same_maps[level], down_maps[level], up_maps[level] = derive_level_maps(
+                grids[level], parents[level], slot_tables[level], same_maps[level + 1])
+        else:
+            same_maps[level] = same_level_map(grids[level], KERNEL_OFFSETS_K3, bits)
+            down_maps[level] = down_map_fine_side(grids[level], grids[level + 1], bits)
+            up_maps[level] = up_map_from_down(down_maps[level], capacities[level])
     overflows.append(torch.zeros((), dtype=torch.int32, device=grid0.keys.device))
     return Hierarchy(
         grids=tuple(grids),

@@ -35,6 +35,8 @@ def _kernel_offsets(kernel_size: int) -> np.ndarray:
 
 
 KERNEL_OFFSETS_K3 = _kernel_offsets(3)
+KERNEL_OFFSETS_K2 = _kernel_offsets(2)
+KERNEL_OFFSETS_K1 = _kernel_offsets(1)
 
 
 class SparseGrid(NamedTuple):
@@ -49,6 +51,10 @@ class SparseGrid(NamedTuple):
     @property
     def capacity(self) -> int:
         return self.keys.shape[0]
+
+    def count(self) -> torch.Tensor:
+        """[] int32 number of valid rows."""
+        return self.mask.sum().to(torch.int32)
 
     def to(self, device) -> "SparseGrid":
         return SparseGrid(*(t.to(device) for t in self))
@@ -147,6 +153,52 @@ def downsample(
     parent = torch.empty_like(parent_sorted)
     parent[order] = parent_sorted
     return coarse, parent
+
+
+def _lookup_offsets(table: SparseGrid, q_batch: torch.Tensor, q_coords: torch.Tensor,
+                    invalid: torch.Tensor, bits: BitLayout) -> torch.Tensor:
+    """Row of ``table`` at each of the [N, K] query voxels, -1 where absent
+    or ``invalid``."""
+    n, k = invalid.shape
+    q_keys = pack_coords(q_batch.reshape(-1), q_coords.reshape(-1, 3), bits,
+                         extra_invalid=invalid.reshape(-1))
+    return lookup(table.keys, q_keys).reshape(n, k)
+
+
+def down_map(
+    fine: SparseGrid,
+    coarse: SparseGrid,
+    kernel_offsets: np.ndarray = KERNEL_OFFSETS_K3,
+    bits: BitLayout = DEFAULT_BITS,
+) -> torch.Tensor:
+    """Stride-2 kernel map by direct lookup: coarse row i gathers the fine
+    row at ``2 * coarse.coords[i] + offsets[k]`` (ME's stride-2 semantics
+    in stride units). Returns [N_coarse, K] int32 into fine rows."""
+    n, k = coarse.capacity, kernel_offsets.shape[0]
+    offs = torch.as_tensor(kernel_offsets, device=coarse.coords.device)
+    q_coords = 2 * coarse.coords[:, None, :] + offs[None, :, :]
+    return _lookup_offsets(fine, coarse.batch[:, None].expand(n, k), q_coords,
+                           (~coarse.mask)[:, None].expand(n, k), bits)
+
+
+def up_map(
+    fine: SparseGrid,
+    coarse: SparseGrid,
+    kernel_offsets: np.ndarray = KERNEL_OFFSETS_K3,
+    bits: BitLayout = DEFAULT_BITS,
+) -> torch.Tensor:
+    """Stride-2 transpose kernel map by direct lookup, writing onto the
+    fine grid: fine row i gathers the coarse row at ``(fine.coords[i] +
+    offsets[k]) / 2`` where that is integral. Column k pairs with the down
+    conv's weight at the negated offset, so an imported transpose kernel
+    has its K axis reversed. Returns [N_fine, K] int32 into coarse rows."""
+    n, k = fine.capacity, kernel_offsets.shape[0]
+    offs = torch.as_tensor(kernel_offsets, device=fine.coords.device)
+    cand = fine.coords[:, None, :] + offs[None, :, :]
+    divisible = ((cand & 1) == 0).all(dim=-1)
+    q_coords = torch.div(cand, 2, rounding_mode="floor")
+    return _lookup_offsets(coarse, fine.batch[:, None].expand(n, k), q_coords,
+                           ~(fine.mask[:, None] & divisible), bits)
 
 
 _DOWN_CHOICE = np.array(
@@ -279,6 +331,65 @@ def _parity_permute(table_nk: torch.Tensor, parity: torch.Tensor, perm: np.ndarr
     """out[i, k] = table_nk[i, perm[parity[i], k]]."""
     p = torch.as_tensor(perm, device=table_nk.device)[parity.long()]
     return torch.gather(table_nk, 1, p)
+
+
+def _same_parity_tables() -> Tuple[np.ndarray, np.ndarray]:
+    """(KOFF [8, 27], SLOT [8, 27]): for parity p and offset k, the coarse
+    offset index of the brick holding voxel c + o_k, and its slot there."""
+    koff = np.zeros((8, 27), np.int64)
+    slot = np.zeros((8, 27), np.int64)
+    for p in range(8):
+        par = ((p >> 2) & 1, (p >> 1) & 1, p & 1)
+        for k, o in enumerate(KERNEL_OFFSETS_K3):
+            q = [par[a] + int(o[a]) for a in range(3)]
+            d = [v >> 1 for v in q]
+            koff[p, k] = ((d[0] + 1) * 3 + (d[1] + 1)) * 3 + (d[2] + 1)
+            slot[p, k] = (q[0] & 1) * 4 + (q[1] & 1) * 2 + (q[2] & 1)
+    return koff, slot
+
+
+_SAME_KOFF, _SAME_SLOT = _same_parity_tables()
+# the down map's brick c + (o >> 1) and slot o & 1 of each offset o
+_DOWN_KOFF = np.array([(((int(o[0]) >> 1) + 1) * 3 + ((int(o[1]) >> 1) + 1)) * 3
+                       + ((int(o[2]) >> 1) + 1) for o in KERNEL_OFFSETS_K3], np.int64)
+_DOWN_SLOT = np.array([(int(o[0]) & 1) * 4 + (int(o[1]) & 1) * 2 + (int(o[2]) & 1)
+                       for o in KERNEL_OFFSETS_K3], np.int64)
+
+
+def _slot_rows(slot_table: torch.Tensor, bricks: torch.Tensor, slots: torch.Tensor):
+    """slot_table[bricks, slots], -1 where ``bricks`` < 0."""
+    idx = torch.where(bricks >= 0, bricks * 8 + slots,
+                      torch.full_like(bricks, slot_table.numel() - 1))
+    rows = slot_table.reshape(-1)[idx.long()]
+    return torch.where(bricks >= 0, rows, torch.full_like(rows, -1))
+
+
+def derive_same_map(
+    fine: SparseGrid,
+    parent: torch.Tensor,
+    slot_table: torch.Tensor,
+    coarse_map: torch.Tensor,
+) -> torch.Tensor:
+    """The fine level's [N, 27] submanifold map from the coarse 27-map and
+    the brick slot table, one [N, 27] element gather (the split form of
+    :func:`derive_level_maps`' ``same``, equal to it)."""
+    par_bits = fine.coords & 1
+    parity = par_bits[:, 0] * 4 + par_bits[:, 1] * 2 + par_bits[:, 2]
+    ok = fine.mask & (parent >= 0)
+    pnbr = coarse_map[parent.clamp(min=0).long()]
+    bricks = _parity_permute(pnbr, parity, _SAME_KOFF)
+    slots = torch.as_tensor(_SAME_SLOT, device=pnbr.device)[parity.long()]
+    rows = _slot_rows(slot_table, bricks, slots)
+    return torch.where(ok[:, None], rows, torch.full_like(rows, -1))
+
+
+def derive_down_map(coarse_map: torch.Tensor, slot_table: torch.Tensor) -> torch.Tensor:
+    """The [N_coarse, 27] stride-2 map from the coarse 27-map and the slot
+    table: coarse c gathers fine 2c + o, slot o & 1 of brick c + (o >> 1)
+    (the split form of :func:`derive_level_maps`' ``down``, equal to it)."""
+    dev = coarse_map.device
+    bricks = coarse_map[:, torch.as_tensor(_DOWN_KOFF, device=dev)]
+    return _slot_rows(slot_table, bricks, torch.as_tensor(_DOWN_SLOT, device=dev)[None, :])
 
 
 def derive_level_maps(

@@ -10,7 +10,8 @@ per-stage stats history, whose length is the resume epoch counter.
 Serialization: ``torch.save`` of plain dicts, lists, floats and CPU tensors
 (a model's ``state_dict``), loaded with ``torch.load(weights_only=True)``,
 which executes no code from the file. A JAX ``.ckpt`` reaches the port
-through its numpy trees and :func:`..weights.params_from_flax`.
+through its numpy trees and :func:`..weights.params_from_flax`, a reference
+torch-points3d ``.pt`` through :mod:`..cli.import_torch_checkpoint`.
 """
 
 from __future__ import annotations

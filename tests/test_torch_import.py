@@ -77,6 +77,7 @@ def test_package_import_leaves_jax_unloaded():
         "import panopticsegforlargescalepointcloud_tpu_torch.ops.points\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.parallel\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.utils.geometry\n"
+        "import panopticsegforlargescalepointcloud_tpu_torch.cli.import_torch_checkpoint\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -94,6 +95,7 @@ def test_package_import_leaves_jax_unloaded():
     assert "panopticsegforlargescalepointcloud_tpu_torch.parallel.mesh" in mods
     assert "panopticsegforlargescalepointcloud_tpu_torch.parallel.launch" in mods
     assert "panopticsegforlargescalepointcloud_tpu_torch.utils.geometry" in mods
+    assert "panopticsegforlargescalepointcloud_tpu_torch.cli.import_torch_checkpoint" in mods
 
 
 def _tiny_arrays():

@@ -25,14 +25,14 @@ from panopticsegforlargescalepointcloud_tpu.models.pointgroup3heads import (
     build_proposals as j_build_proposals,
 )
 from panopticsegforlargescalepointcloud_tpu_torch.cluster import neighbors as tnb
-from panopticsegforlargescalepointcloud_tpu_torch.cluster import region_grow as trg
 from panopticsegforlargescalepointcloud_tpu_torch.models import PanopticConfig, build_proposals
 from panopticsegforlargescalepointcloud_tpu_torch.ops.hashing import BitLayout
 
 torch.set_num_threads(2)
 
-# the JAX package's cluster/__init__.py exports a function of the module's name
+# each package's cluster/__init__.py exports a function of the module's name
 jrg = importlib.import_module("panopticsegforlargescalepointcloud_tpu.cluster.region_grow")
+trg = importlib.import_module("panopticsegforlargescalepointcloud_tpu_torch.cluster.region_grow")
 
 
 def _cloud(seed, n, ids, extent, grid=None, far=False):

@@ -107,6 +107,57 @@ def _cell_scan(q_pos, q_ids, q_valid, s_pos, s_ids, s_valid, radius: float,
     return q_keys, s_keys, skeys, order, run_starts(skeys, q_keys).long()
 
 
+def _bits(n: int) -> int:
+    """The bits that hold 0 .. n - 1."""
+    return max(int(n) - 1, 0).bit_length()
+
+
+def _k_nearest_rows(q_pos, pos_s, q_keys, skeys, order, start, radius: float, k: int,
+                    cell_cap: int):
+    """:func:`_k_nearest` bit for bit over the in-cell candidates alone:
+    the CPU's path, where the dense scan of Q·O·``cell_cap`` slots, most of
+    them empty, is the cost.
+
+    Slot s of run (q, o) reads sorted row min(start + s, ns - 1): it is in
+    the cell while start + s is before the run's end, and at every later
+    slot when the run reaches the last row (the clamped slots repeat that
+    row, as in the dense scan). The candidates within the radius are
+    ordered by one int64 key, (query, distance bits, slot), and each query
+    keeps its first k."""
+    nq, no = start.shape
+    ns = pos_s.shape[0]
+    dev = q_pos.device
+    end = torch.searchsorted(skeys, q_keys.contiguous(), right=True)
+    to_end = (end == ns) & (skeys[ns - 1] == q_keys)
+    length = torch.where(to_end, cell_cap, (end - start).clamp(0, cell_cap))
+    length = torch.where(q_keys != INVALID_KEY, length, 0).reshape(-1)
+    run = torch.repeat_interleave(torch.arange(nq * no, device=dev), length)  # (q, o) per slot
+    slot = torch.arange(run.numel(), device=dev) - (torch.cumsum(length, 0) - length)[run]
+    cand = torch.clamp(start.reshape(-1)[run] + slot, max=ns - 1)
+    qi = run // no
+    dist2 = None
+    for c in range(3):  # the squares summed in coordinate order
+        d = q_pos[:, c][qi] - pos_s[:, c][cand]
+        dist2 = d * d if dist2 is None else dist2 + d * d
+    ok = dist2 <= radius * radius
+    qi, cand, dist2 = qi[ok], cand[ok], dist2[ok]
+    m_bits = _bits(no * cell_cap)
+    key = ((qi << (31 + m_bits)) | (dist2.view(torch.int32).long() << m_bits)
+           | ((run[ok] % no) * cell_cap + slot[ok]))
+    perm = torch.sort(key).indices
+    qi = qi[perm]
+    counts = torch.bincount(qi, minlength=nq)
+    rank = torch.arange(qi.numel(), device=dev) - (torch.cumsum(counts, 0) - counts)[qi]
+    kk = min(k, no * cell_cap)
+    keep = rank < kk
+    qi, rank, perm = qi[keep], rank[keep], perm[keep]
+    idx = torch.full((nq, kk), -1, dtype=torch.int32, device=dev)
+    out_d2 = torch.full((nq, kk), float("inf"), dtype=dist2.dtype, device=dev)
+    idx[qi, rank] = order[cand[perm]].to(torch.int32)
+    out_d2[qi, rank] = dist2[perm]
+    return idx, out_d2
+
+
 def _k_nearest(q_pos, pos_s, q_keys, skeys, order, start, radius: float, k: int,
                cell_cap: int):
     """The ``k`` nearest of the candidates: up to ``cell_cap`` sorted
@@ -118,6 +169,17 @@ def _k_nearest(q_pos, pos_s, q_keys, skeys, order, start, radius: float, k: int,
     unique, so the k smallest are one set in one order on any device).
     Returns (idx [Q, min(k, O·cell_cap)] int32 into the support rows, -1
     padding; dist2 f32, +inf padding), nearest first."""
+    if (q_pos.device.type == "cpu" and pos_s.shape[0]
+            and 31 + _bits(start.shape[1] * cell_cap) + _bits(q_pos.shape[0]) <= 63):
+        return _k_nearest_rows(q_pos, pos_s, q_keys, skeys, order, start, radius, k,
+                               cell_cap)
+    return _k_nearest_dense(q_pos, pos_s, q_keys, skeys, order, start, radius, k, cell_cap)
+
+
+def _k_nearest_dense(q_pos, pos_s, q_keys, skeys, order, start, radius: float, k: int,
+                     cell_cap: int):
+    """:func:`_k_nearest` over every slot: [Q, O, ``cell_cap``] candidates,
+    the k smallest keys by ``topk``."""
     nq = q_pos.shape[0]
     ns = pos_s.shape[0]
     dev = q_pos.device

@@ -15,9 +15,12 @@ On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 its plain version: :func:`sparse_conv_plain` (the JAX package's ``_apply``:
 zero pad row, per-offset gather and GEMM, f32 accumulation) and
 :func:`sparse_conv_dw_plain` (``_conv_tm_bwd``'s per-offset ``fk^T @ g``).
-Each launch's plan (tile widths, splits, workspace) is a plain function of
-the shapes, :func:`conv_plan` and :func:`dw_plan`, and the bf16 operands'
-layout check is :func:`check_rows`: all three run on the CPU too. The C
+Where no autograd graph is built, the CPU forward takes
+:func:`sparse_conv_rows`, the plain version's sum over the present rows
+only, equal to it bit for bit. Each launch's plan (tile widths, splits,
+workspace) is a plain function of the shapes, :func:`conv_plan` and
+:func:`dw_plan`, and the bf16 operands' layout check is
+:func:`check_rows`: all three run on the CPU too. The C
 launchers take the plan as given and refuse one their instances cannot
 run; each wrapper raises on a refused launch.
 """
@@ -202,6 +205,42 @@ def sparse_conv_plain(feats: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+# above this share of present map entries the plain version's dense GEMMs
+# are the faster of the two
+_ROWS_MAX_DENSITY = 0.25
+
+
+def sparse_conv_rows(feats: torch.Tensor, idx: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """:func:`sparse_conv_plain` bit for bit, faster on the CPU's sparse
+    maps: per offset, the GEMM of the present rows alone, added into theirs.
+
+    The plain version adds to each row, in offset order, its present
+    rows' products and the zero pad row's products (``+-0``); adding a
+    signed zero to a sum that starts at ``+0`` changes no bit, and each
+    present row's product is the same GEMM row. With non-finite weights the
+    pad row's products are NaN, so those go to the plain version, as do
+    dense maps. Not differentiable: the plain version's autograd sums its
+    weight gradient over every row."""
+    n_out, kvol = idx.shape
+    w = weights.float()
+    idx_t = idx.t()
+    present = idx_t >= 0
+    nnz = int(present.sum())
+    if nnz > _ROWS_MAX_DENSITY * idx.numel() or not bool(torch.isfinite(w).all()):
+        return sparse_conv_plain(feats, idx, weights)
+    off, rows = torch.nonzero(present, as_tuple=True)  # offset-major, rows ascending
+    gathered = feats.float()[idx_t[off, rows].long()]
+    out = torch.zeros((n_out, w.shape[2]), dtype=torch.float32, device=feats.device)
+    start = 0
+    for k, count in enumerate(torch.bincount(off, minlength=kvol).tolist()):
+        if count:
+            end = start + count
+            out.index_add_(0, rows[start:end], gathered[start:end] @ w[k])
+            start = end
+    return out
+
+
 def sparse_conv_dw_plain(feats: torch.Tensor, idx: torch.Tensor,
                          g: torch.Tensor) -> torch.Tensor:
     """Per-offset gather and ``fk^T @ g``, in f32: [K, Cin, Cout]."""
@@ -254,7 +293,9 @@ def sparse_conv_fwd(feats: torch.Tensor, idx: torch.Tensor, weights: torch.Tenso
         raise ValueError(f"weights {tuple(weights.shape)} do not match feats "
                          f"{tuple(feats.shape)} and map {tuple(idx.shape)}")
     if feats.device.type == "cpu":
-        return sparse_conv_plain(feats, idx, weights)
+        if torch.is_grad_enabled() and (feats.requires_grad or weights.requires_grad):
+            return sparse_conv_plain(feats, idx, weights)
+        return sparse_conv_rows(feats, idx, weights)
     check_operands("sparse_conv", feats, weights, idx)
     n_in, cin = feats.shape
     cout = weights.shape[2]

@@ -38,6 +38,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.ops.conv import (
 )
 from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hierarchy
 from panopticsegforlargescalepointcloud_tpu_torch.ops.sparse import make_grid
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -23,6 +23,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.cluster import dense_grow as t
 from panopticsegforlargescalepointcloud_tpu_torch.cluster.region_grow import (
     region_grow_folded as t_region_grow,
 )
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -17,6 +17,7 @@ gradient within 1e-4 of its tensor's max |g| plus 1e-6, and the proposals
 of its train-mode forward (exactly). The first step is a full step: it
 does the prepare step's work and clusters."""
 
+import concurrent.futures
 import copy
 
 import jax
@@ -52,6 +53,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.train import (
 )
 from panopticsegforlargescalepointcloud_tpu_torch.train.step import init_params
 from panopticsegforlargescalepointcloud_tpu_torch.weights import flax_paths, params_from_flax
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -100,10 +102,13 @@ def setup():
     tiles = [synthetic_tile(rng, n_instances=4, pts_per_instance=80) for _ in range(2)]
     arrays = batch_arrays(collate_tiles(tiles, capacity=4096, num_tiles=2))
     jcfg = JConfig(**SETTING_1, use_winconv="off", rg_dense="on")
-    db = j_canon(*arrays)
-    hier = j_hier(db.grid, jcfg.num_down)
-    want = jax.eval_shape(lambda: j_init_state(jcfg, JNet(jcfg), optax.adam(1e-3), db, hier,
-                                               jax.random.PRNGKey(0)))
+
+    def init(arrays):
+        db = j_canon(*arrays)
+        return j_init_state(jcfg, JNet(jcfg), optax.adam(1e-3), db,
+                            j_hier(db.grid, jcfg.num_down), jax.random.PRNGKey(0))
+
+    want = jax.eval_shape(init, arrays)
     model = init_params(PointGroup3HeadsNet(PanopticConfig(**SETTING_1)),
                         torch.Generator().manual_seed(0))
     flat = flax_paths(model.state_dict())
@@ -139,15 +144,31 @@ def test_weight_tree(setup):
     assert any(n.startswith("scorer.") for n in names)
 
 
+def _jax_forward(setup, variant):
+    jcfg, jmodel = _jax(variant)
+    return j_make_eval_forward(jcfg, jmodel)(setup["params"], setup["stats"], setup["arrays"],
+                                             subset_seed=3)[1]
+
+
+@pytest.fixture(scope="module")
+def jax_refs(setup):
+    """Each variant's JAX eval forward and first full step, started at once
+    in two threads of their own: XLA leaves the interpreter lock while it
+    compiles, so the four programs compile beside each other and beside the
+    port's runs."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        refs = {("forward", v): pool.submit(_jax_forward, setup, v) for v in VARIANTS}
+        refs.update({("step", v): pool.submit(_jax_step, setup, v, True) for v in VARIANTS})
+        yield refs
+
+
 @pytest.fixture(scope="module", params=list(VARIANTS))
-def forward(request, setup):
-    jcfg, jmodel = _jax(request.param)
-    _, jout = j_make_eval_forward(jcfg, jmodel)(setup["params"], setup["stats"],
-                                                 setup["arrays"], subset_seed=3)
+def forward(request, setup, jax_refs):
     cfg = PanopticConfig(**VARIANTS[request.param])
     _, tout = make_eval_forward(cfg, _port_model(setup, request.param), device="cpu")(
         setup["np_arrays"], subset_seed=3)
-    return dict(name=request.param, jout=jout, tout=tout)
+    return dict(name=request.param, jout=jax_refs["forward", request.param].result(),
+                tout=tout)
 
 
 @pytest.mark.parametrize("name", ["semantic_logits", "offset_logits", "embed_logits",
@@ -202,10 +223,9 @@ def _jax_step(setup, variant, with_clustering):
 
 
 @pytest.fixture(scope="module", params=list(VARIANTS))
-def step(request, setup):
+def step(request, setup, jax_refs):
     """The first full train step (the prepare step's work and clustering)."""
     variant = request.param
-    jmetrics, jgrads, jprops = _jax_step(setup, variant, True)
     cfg = PanopticConfig(**VARIANTS[variant])
     model = _port_model(setup, variant)
     twin = copy.deepcopy(model).train()
@@ -218,6 +238,7 @@ def step(request, setup):
     metrics = make_train_step(cfg, model, opt, make_lr_schedule("ExponentialLR", {}, 1e-3, 750),
                               True, device="cpu")(setup["np_arrays"], MOMENTUM)
     grads = flax_paths({n: p.grad for n, p in model.named_parameters()})
+    jmetrics, jgrads, jprops = jax_refs["step", variant].result()
     return dict(variant=variant, jmetrics=jmetrics, jgrads=jgrads, jprops=jprops,
                 metrics=metrics, grads=grads, props=props)
 

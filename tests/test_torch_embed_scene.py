@@ -43,6 +43,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.train.evaluator import FullSce
 from panopticsegforlargescalepointcloud_tpu_torch.weights import params_from_flax
 from test_data import make_forest_ply
 from test_torch_settings import _flax_tree
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -21,8 +21,10 @@ from test_torch_settings import (
     check_membership_blocks,
     check_train_step_losses,
     check_train_step_proposals,
+    jax_cases,
     run_case,
 )
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -34,9 +36,14 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module")
+def jax_refs(arrays):  # noqa: F811
+    yield from jax_cases(CASES, arrays)
+
+
 @pytest.fixture(scope="module", params=list(CASES))
-def case(request, arrays):  # noqa: F811
-    return run_case(request.param, CASES[request.param], arrays)
+def case(request, arrays, jax_refs):  # noqa: F811
+    return run_case(request.param, CASES[request.param], arrays, jax_refs[request.param])
 
 
 @pytest.mark.parametrize("name", HEADS)

@@ -51,6 +51,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.ops import (
 from panopticsegforlargescalepointcloud_tpu_torch.ops import sparse as tsp
 from panopticsegforlargescalepointcloud_tpu_torch.ops.sparse import slot_table_from_parent
 from panopticsegforlargescalepointcloud_tpu_torch.utils import debugging as tdebug
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

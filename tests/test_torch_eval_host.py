@@ -37,6 +37,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.eval.panoptic_quality import f
 from panopticsegforlargescalepointcloud_tpu_torch.models import Proposals
 from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
 from test_data import make_forest_ply
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -2,12 +2,10 @@
 device IoU + NMS, block merging, finalise, PQ report) against the JAX
 package's on a small synthetic forest (4 trees, 14 m, 4,096-row tiles),
 tiny plan, weights carried over with ``params_from_flax``; the port's
-grouped dispatch (2 tiles per forward) against its sequential path; voting
-runs 2 and 3 (re-tilings with shifted grid origins) at 1 and 2 tiles per
-dispatch against the JAX evaluator's voting runs (at 1 tile per dispatch:
-on this scene the budgets do not bind, so grouping changes no label, as the
-grouped-dispatch test shows); and the port's eval CLI on the CPU from a
-port checkpoint.
+grouped dispatch (2 tiles per forward) against its sequential path; and
+the port's eval CLI on the CPU from a port checkpoint. Voting runs 2 and 3
+on the same scene are in ``test_torch_evaluator_votes.py``, which imports
+this file's ``reference``, ``port_scene`` and ``jax_scenes``.
 
 The JAX side runs as its own tests run it: f32, ``use_winconv="off"``,
 ``rg_dense="on"`` (dense pull in Pallas interpret mode), and the numpy
@@ -15,6 +13,7 @@ voxelization and tile queries (its optional C++ path is switched off).
 Tolerances: per-point semantic and instance labels identical; report floats
 within 1e-6."""
 
+import concurrent.futures
 import json
 
 import jax
@@ -54,6 +53,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelC
 from panopticsegforlargescalepointcloud_tpu_torch.train.evaluator import FullSceneEvaluator
 from panopticsegforlargescalepointcloud_tpu_torch.weights import params_from_flax
 from test_data import make_forest_ply
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -74,7 +74,9 @@ def _random_stats(tree, rng):
 
 
 @pytest.fixture(scope="module")
-def scene(tmp_path_factory):
+def reference(tmp_path_factory):
+    """The forest, the JAX package's initial weights with random BN
+    statistics, and the port's model carrying them."""
     tmp = tmp_path_factory.mktemp("scene")
     ply = str(tmp / "forest.ply")
     make_forest_ply(ply, np.random.default_rng(2022), n_trees=4, extent=14.0)
@@ -88,23 +90,50 @@ def scene(tmp_path_factory):
     params = jax.tree.map(np.asarray, state.params)
     stats = _random_stats(jax.tree.map(np.asarray, state.batch_stats),
                           np.random.default_rng(1))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        jds = JDataset(J_TREEINS, [ply], grid_size=0.2, radius=7.0, keep_raw=True)
-        jev = JEvaluator(jcfg, jmodel, params, stats, jds, capacity=CAPACITY)
-        jrep = jev.run(out_dir=str(tmp / "jax"))
-
     cfg = PanopticConfig(**CFG)
     model = PointGroup3HeadsNet(cfg)
     model.load_state_dict(params_from_flax(params, stats), strict=True)
-    runs = {}
-    for g in (1, 2):
-        ds = PanopticFileDataset(TREEINS_SPEC, [ply], grid_size=0.2, radius=7.0, keep_raw=True)
-        ev = FullSceneEvaluator(cfg, model, ds, capacity=CAPACITY, tiles_per_dispatch=g,
-                                device="cpu")
-        runs[g] = (ev.run(out_dir=str(tmp / f"port_g{g}")), tmp / f"port_g{g}")
-    return dict(tmp=tmp, ply=ply, cfg=cfg, model=model, jax=(jrep, tmp / "jax"), port=runs,
-                jcfg=jcfg, jmodel=jmodel, params=params, stats=stats, jev=jev, jds=jds)
+    return dict(tmp=tmp, ply=ply, cfg=cfg, model=model, jcfg=jcfg, jmodel=jmodel, params=params,
+                stats=stats)
+
+
+def port_scene(ref, g, out_dir, voting_runs=1):
+    """The port's evaluator on the forest at g tiles per dispatch: its
+    reports, written with the PLYs into ``out_dir``."""
+    ds = PanopticFileDataset(TREEINS_SPEC, [ref["ply"]], grid_size=0.2, radius=7.0,
+                             keep_raw=True)
+    ev = FullSceneEvaluator(ref["cfg"], ref["model"], ds, capacity=CAPACITY,
+                            tiles_per_dispatch=g, device="cpu")
+    return ev.run(out_dir=str(out_dir), voting_runs=voting_runs)
+
+
+def jax_scenes(ref, voting_runs):
+    """The JAX evaluator's reports and output directories, one per entry of
+    ``voting_runs`` (its compiled forward reused), with the JAX package's
+    numpy voxelization and tile queries."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "available", lambda: False)
+        jds = JDataset(J_TREEINS, [ref["ply"]], grid_size=0.2, radius=7.0, keep_raw=True)
+        jev = JEvaluator(ref["jcfg"], ref["jmodel"], ref["params"], ref["stats"], jds,
+                         capacity=CAPACITY)
+        for runs in voting_runs:
+            d = ref["tmp"] / (f"jax_v{runs}" if runs > 1 else "jax")
+            out[runs] = (jev.run(out_dir=str(d), voting_runs=runs), d)
+    return out
+
+
+@pytest.fixture(scope="module")
+def scene(reference):
+    # the port's scenes run in a second thread while this one runs the JAX
+    # evaluator (both leave the interpreter lock in their kernels)
+    tmp = reference["tmp"]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        port = pool.submit(lambda: {g: (port_scene(reference, g, tmp / f"port_g{g}"),
+                                        tmp / f"port_g{g}") for g in (1, 2)})
+        jax_side = jax_scenes(reference, (1,))[1]
+        runs = port.result()
+    return dict(reference, jax=jax_side, port=runs)
 
 
 def _labels(out_dir, kind):
@@ -139,45 +168,6 @@ def test_reports_match(scene, other):
     assert set(got[0]) == set(want[0])
     for k, v in want[0].items():
         assert got[0][k] == pytest.approx(v, abs=1e-6), k
-
-
-@pytest.fixture(scope="module")
-def votes(scene):
-    """Labels and reports of voting runs 2 and 3: the JAX evaluator's (its
-    compiled forward reused) and the port's at g = 1 and 2."""
-    tmp, out = scene["tmp"], {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        for runs in (2, 3):
-            d = tmp / f"jax_v{runs}"
-            out["jax", runs] = (scene["jev"].run(out_dir=str(d), voting_runs=runs), d)
-    for g in (1, 2):
-        ds = PanopticFileDataset(TREEINS_SPEC, [scene["ply"]], grid_size=0.2, radius=7.0,
-                                 keep_raw=True)
-        ev = FullSceneEvaluator(scene["cfg"], scene["model"], ds, capacity=CAPACITY,
-                                tiles_per_dispatch=g, device="cpu")
-        for runs in (2, 3):
-            d = tmp / f"port_v{runs}_g{g}"
-            out["port", g, runs] = (ev.run(out_dir=str(d), voting_runs=runs), d)
-    return out
-
-
-@pytest.mark.parametrize("g", [1, 2])
-@pytest.mark.parametrize("runs", [2, 3])
-def test_voting_runs_match_jax(votes, g, runs):
-    (jrep, jdir), (prep, pdir) = votes["jax", runs], votes["port", g, runs]
-    for kind in ("semantic", "instance"):
-        np.testing.assert_array_equal(_labels(pdir, kind), _labels(jdir, kind), err_msg=kind)
-    assert len(prep) == len(jrep) == 1 and set(prep[0]) == set(jrep[0])
-    for k, v in jrep[0].items():
-        assert prep[0][k] == pytest.approx(v, abs=1e-6), k
-
-
-def test_voting_runs_change_the_labels(votes, scene):
-    """The re-tilings vote: three runs do not label every point as one run."""
-    one, three = scene["port"][1][1], votes["port", 1, 3][1]
-    assert any(not np.array_equal(_labels(three, kind), _labels(one, kind))
-               for kind in ("semantic", "instance"))
 
 
 def test_evaluation_report_text_matches_jax(scene):

@@ -42,6 +42,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.data.ply import read_ply
 from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
 from panopticsegforlargescalepointcloud_tpu_torch.weights import params_from_flax
 from test_data import make_forest_ply
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

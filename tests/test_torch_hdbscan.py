@@ -17,6 +17,7 @@ import torch
 
 from panopticsegforlargescalepointcloud_tpu.cluster import hdbscan as jhd
 from panopticsegforlargescalepointcloud_tpu_torch.cluster import hdbscan as thd
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

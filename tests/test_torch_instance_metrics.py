@@ -10,6 +10,7 @@ import pytest
 
 from panopticsegforlargescalepointcloud_tpu.eval import instance_metrics as J
 from panopticsegforlargescalepointcloud_tpu_torch.eval import instance_metrics as P
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 THINGS = (2, 3, 4, 6, 7, 8)
 

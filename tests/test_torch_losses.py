@@ -25,6 +25,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.models.pointgroup3heads import
     Proposals,
     panoptic_losses,
 )
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -16,6 +16,7 @@ within 1e-4, gradients within 1e-3 of max |g|); ``panoptic_losses`` on one
 output at a closed and an open ``cal_iou`` gate; the trainer's gate keys;
 the member filter of ``get_instances`` and ``extract_clusters``."""
 
+import concurrent.futures
 import copy
 import types
 
@@ -74,6 +75,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.train.trainer import Trainer
 from panopticsegforlargescalepointcloud_tpu_torch.weights import flax_paths, params_from_flax
 from test_torch_eval_host import _port_props, _proposals
 from test_torch_settings import _nest, _random_stats
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -100,12 +102,17 @@ def _port_output(jout) -> PanopticOutput:
 
 @pytest.fixture(scope="module")
 def setup():
-    return _setup(KW, eval_forward=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        yield _setup(KW, eval_forward=True, pool=pool)
 
 
-def _setup(kw, eval_forward=False):
+def _setup(kw, eval_forward=False, pool=None):
     """Both packages' configs and models for ``kw``, the crafted weights as
-    a flax tree, the batch and, with ``eval_forward``, both eval forwards."""
+    a flax tree, the batch and, with ``eval_forward``, both eval forwards.
+    With a thread ``pool``, the JAX side of :func:`full_steps` starts at
+    once in a thread of its own (``jax_full``), and so does the JAX eval
+    forward: XLA leaves the interpreter lock while it compiles, so the JAX
+    programs compile beside each other and beside the port's runs."""
     rng = np.random.default_rng(7)
     tiles = [synthetic_tile(rng, n_instances=4, pts_per_instance=80, n_ground=0)
              for _ in range(2)]
@@ -128,18 +135,22 @@ def _setup(kw, eval_forward=False):
     np_arrays = tuple(np.asarray(a) for a in arrays)
     out = dict(cfg=cfg, jcfg=jcfg, model=model, jmodel=jmodel, params=params, stats=stats,
                arrays=arrays, np_arrays=np_arrays)
+    if pool is not None:
+        out["jax_full"] = pool.submit(jax_full_step, out)
     if eval_forward:
-        out["jdb"], out["jout"] = j_make_eval_forward(jcfg, jmodel)(params, stats, arrays)
+        def jax_eval():
+            return j_make_eval_forward(jcfg, JNet(jcfg))(params, stats, arrays)
+
+        jeval = pool.submit(jax_eval) if pool is not None else None
         out["tdb"], out["tout"] = make_eval_forward(cfg, model, device="cpu")(np_arrays)
+        out["jdb"], out["jout"] = jeval.result() if jeval is not None else jax_eval()
     return out
 
 
-def full_steps(setup):
-    """The first full train step at ``epoch=None`` in both packages from the
-    setup's weights: (JAX metrics, port metrics, JAX gradients, port
-    gradients, JAX train-mode scores and proposals, port train-mode scores
-    and proposals); gradients by flax path."""
-    cfg, jcfg, jmodel = setup["cfg"], setup["jcfg"], setup["jmodel"]
+def jax_full_step(setup):
+    """The JAX side of :func:`full_steps`."""
+    jcfg = setup["jcfg"]
+    jmodel = JNet(jcfg)
 
     def loss_fn(params, stats, arrays):
         db = j_canon(*arrays)
@@ -154,6 +165,17 @@ def full_steps(setup):
 
     (_, (jm, jscores, jprops)), jg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         setup["params"], setup["stats"], setup["arrays"])
+    return dict(jm=jm, jgrads={k: np.asarray(v) for k, v in _flat(jg).items()},
+                jscores=np.asarray(jscores), jprops=jprops)
+
+
+def full_steps(setup):
+    """The first full train step at ``epoch=None`` in both packages from the
+    setup's weights: (JAX metrics, port metrics, JAX gradients, port
+    gradients, JAX train-mode scores and proposals, port train-mode scores
+    and proposals); gradients by flax path. The JAX side is the setup's
+    ``jax_full`` when it has one (a future of :func:`jax_full_step`)."""
+    cfg = setup["cfg"]
     model = PointGroup3HeadsNet(cfg)
     model.load_state_dict(params_from_flax(setup["params"], setup["stats"]), strict=True)
     twin = copy.deepcopy(model).train()
@@ -165,9 +187,9 @@ def full_steps(setup):
     tm = make_train_step(cfg, model, opt, make_lr_schedule("ExponentialLR", {}, 1e-3, 750),
                          True, device="cpu", epoch=None)(setup["np_arrays"], MOMENTUM)
     grads = flax_paths({n: p.grad for n, p in model.named_parameters()})
-    return dict(jm=jm, tm=tm, jgrads={k: np.asarray(v) for k, v in _flat(jg).items()},
-                grads=grads, jscores=np.asarray(jscores), jprops=jprops,
-                tscores=tout.cluster_scores, tprops=tout.proposals)
+    jax_side = setup["jax_full"].result() if "jax_full" in setup else jax_full_step(setup)
+    return dict(jax_side, tm=tm, grads=grads, tscores=tout.cluster_scores,
+                tprops=tout.proposals)
 
 
 def check_full_steps(r):

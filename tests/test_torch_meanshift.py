@@ -13,6 +13,7 @@ from panopticsegforlargescalepointcloud_tpu.cluster.pallas_meanshift import (
     meanshift_update as j_update,
 )
 from panopticsegforlargescalepointcloud_tpu_torch.cluster import meanshift as tms
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 BW = 0.6

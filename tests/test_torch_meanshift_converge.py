@@ -14,6 +14,7 @@ import torch
 
 from panopticsegforlargescalepointcloud_tpu.cluster import meanshift as jms
 from panopticsegforlargescalepointcloud_tpu_torch.cluster import meanshift as tms
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 BW = 0.6

@@ -13,6 +13,7 @@ from panopticsegforlargescalepointcloud_tpu.eval.merge import (
 from panopticsegforlargescalepointcloud_tpu.utils import geometry as j_geometry
 from panopticsegforlargescalepointcloud_tpu_torch.eval.merge import block_merging_by_score
 from panopticsegforlargescalepointcloud_tpu_torch.utils import geometry
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 
 def _tile(rng, full_pos, n_clusters):

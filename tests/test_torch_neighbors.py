@@ -22,6 +22,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.cluster.neighbors import (
     cell_cap_truncated,
     radius_query,
 )
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

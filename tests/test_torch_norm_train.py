@@ -15,6 +15,7 @@ import torch
 from panopticsegforlargescalepointcloud_tpu.models.norm import MaskedBatchNorm as JBN
 from panopticsegforlargescalepointcloud_tpu_torch.models.norm import MaskedBatchNorm as TBN
 from panopticsegforlargescalepointcloud_tpu_torch.weights import params_from_flax
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -21,6 +21,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.train.optim import (
     make_optimizer,
     optimizer_step,
 )
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -43,6 +43,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.train.optim import (
     optimizer_step,
 )
 from panopticsegforlargescalepointcloud_tpu_torch.train.step import init_state, make_train_step
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

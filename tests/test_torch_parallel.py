@@ -22,6 +22,8 @@ running statistic within 1e-5 of its max |value|; the proposals exactly;
 the two ranks' replicas (every parameter and buffer) bit-identical after
 each step."""
 
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,8 +75,13 @@ from panopticsegforlargescalepointcloud_tpu_torch.train import step as step_modu
 from panopticsegforlargescalepointcloud_tpu_torch.train.optim import build_from_config
 from panopticsegforlargescalepointcloud_tpu_torch.train.step import init_params
 from panopticsegforlargescalepointcloud_tpu_torch.weights import flax_paths, params_from_flax
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
+
+# a rank left waiting in a collective fails the fixture after this long,
+# not after the launcher's default of 30 minutes
+RANK_TIMEOUT_S = 300
 
 CFG = dict(num_classes=9, stuff_classes=(0, 7, 8), backbone="tiny", feat_dim=4, in_feat=8,
            num_samples=1, max_instances=16, max_props_rg=32, ms_max_seeds=32,
@@ -183,60 +190,76 @@ def _tiles():
             for _ in range(2)]
 
 
+def _weights(case):
+    """The port's initializers with random BN statistics, as flax trees
+    (params, batch_stats)."""
+    model = init_params(PointGroup3HeadsNet(PanopticConfig(**CFG, **case["model"])),
+                        torch.Generator().manual_seed(0))
+    flat = flax_paths(model.state_dict())
+    stat = {k for k in flat if k.rsplit("/", 1)[1] in ("mean", "var")}
+    return (_nest({k: v for k, v in flat.items() if k not in stat}),
+            _random_stats(_nest({k: v for k, v in flat.items() if k in stat}),
+                          np.random.default_rng(1)))
+
+
 @pytest.fixture(scope="module")
 def runs():
     per_dev = _tiles()
     stacked = j_stack(per_dev)
     arrays = tuple(np.asarray(a) for a in batch_arrays(stacked))
     mesh = j_make_mesh(jax.devices()[:2])
-    state_dicts, jax_runs = {}, {}
-    for name, case in CASES.items():
-        jcfg = JConfig(**CFG, **case["model"], use_winconv="off", rg_dense="on")
-        jmodel = JNet(jcfg)
-        tx, _, _ = j_build_from_config(j_training_config(_tcfg_yaml(case)), SCHEDULE)
-        # the port's initializers, random BN statistics; the JAX state holds
-        # the same values as flax trees
-        model = init_params(PointGroup3HeadsNet(PanopticConfig(**CFG, **case["model"])),
-                            torch.Generator().manual_seed(0))
-        flat = flax_paths(model.state_dict())
-        stat = {k for k in flat if k.rsplit("/", 1)[1] in ("mean", "var")}
-        params = _nest({k: v for k, v in flat.items() if k not in stat})
-        stats = _random_stats(_nest({k: v for k, v in flat.items() if k in stat}),
-                              np.random.default_rng(1))
-        state_dicts[name] = {k: torch.from_numpy(np.array(v)) for k, v in
-                             params_from_flax(params, stats).items()}
-        state = JTrainState(step=jnp.asarray(0, jnp.int32),
-                            params=jax.tree.map(jnp.asarray, params),
-                            batch_stats=jax.tree.map(jnp.asarray, stats),
-                            opt_state=tx.init(jax.tree.map(jnp.asarray, params)),
-                            bn_momentum=jnp.asarray(MOMENTUM, jnp.float32))
-        # the mesh step's forward: train mode, no subset counter
-        props = []
-        if case["full"]:
-            def proposals(block, jcfg=jcfg, jmodel=jmodel):
-                sdb = j_canon(*block)
-                out, _ = j_panoptic_forward(
-                    jcfg, jmodel, {"params": params, "batch_stats": stats}, sdb,
-                    j_hier(sdb.grid, jcfg.num_down), train=True, with_clustering=True,
-                    momentum=MOMENTUM)
-                return out.proposals._asdict()
-
-            fwd = jax.jit(proposals)
-            props = [jax.tree.map(np.asarray, fwd(tuple(a[d] for a in arrays)))
-                     for d in range(2)]
-        step = j_parallel_step(jcfg, jmodel, tx, mesh, with_clustering=case["full"],
-                               grad_clip_value=case["clip"])
-        state = j_replicate(mesh, state)
-        sharded = j_shard_batch(mesh, tuple(jnp.asarray(a) for a in arrays))
-        losses = []
-        for _ in range(STEPS):
-            state, m = step(state, sharded)
-            losses.append({k: float(v) for k, v in m.items()})
-        jax_runs[name] = dict(losses=losses, params=_flat(jax.device_get(state.params)),
-                              stats=_flat(jax.device_get(state.batch_stats)), props=props,
-                              step=int(state.step))
-    ranks = spawn(_dp_worker, ["cpu", "cpu"], list(CASES), state_dicts, arrays)
+    weights = {name: _weights(case) for name, case in CASES.items()}
+    state_dicts = {name: {k: torch.from_numpy(np.array(v))
+                          for k, v in params_from_flax(*w).items()}
+                   for name, w in weights.items()}
+    # the port's ranks are processes of their own: they run while this
+    # process computes the JAX side
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        port = pool.submit(spawn, _dp_worker, ["cpu", "cpu"], list(CASES), state_dicts, arrays,
+                           timeout_s=RANK_TIMEOUT_S)
+        jax_runs = {name: _jax_run(case, weights[name], mesh, arrays)
+                    for name, case in CASES.items()}
+        ranks = port.result()
     return dict(jax=jax_runs, ranks=ranks, per_dev=per_dev, arrays=arrays)
+
+
+def _jax_run(case, weights, mesh, arrays):
+    """The JAX mesh step's two steps (and, for a full step, the train-mode
+    forward's proposals on each device's block) from ``weights``."""
+    params, stats = weights
+    jcfg = JConfig(**CFG, **case["model"], use_winconv="off", rg_dense="on")
+    jmodel = JNet(jcfg)
+    tx, _, _ = j_build_from_config(j_training_config(_tcfg_yaml(case)), SCHEDULE)
+    state = JTrainState(step=jnp.asarray(0, jnp.int32),
+                        params=jax.tree.map(jnp.asarray, params),
+                        batch_stats=jax.tree.map(jnp.asarray, stats),
+                        opt_state=tx.init(jax.tree.map(jnp.asarray, params)),
+                        bn_momentum=jnp.asarray(MOMENTUM, jnp.float32))
+    # the mesh step's forward: train mode, no subset counter
+    props = []
+    if case["full"]:
+        def proposals(block):
+            sdb = j_canon(*block)
+            out, _ = j_panoptic_forward(
+                jcfg, jmodel, {"params": params, "batch_stats": stats}, sdb,
+                j_hier(sdb.grid, jcfg.num_down), train=True, with_clustering=True,
+                momentum=MOMENTUM)
+            return out.proposals._asdict()
+
+        fwd = jax.jit(proposals)
+        props = [jax.tree.map(np.asarray, fwd(tuple(a[d] for a in arrays)))
+                 for d in range(2)]
+    step = j_parallel_step(jcfg, jmodel, tx, mesh, with_clustering=case["full"],
+                           grad_clip_value=case["clip"])
+    state = j_replicate(mesh, state)
+    sharded = j_shard_batch(mesh, tuple(jnp.asarray(a) for a in arrays))
+    losses = []
+    for _ in range(STEPS):
+        state, m = step(state, sharded)
+        losses.append({k: float(v) for k, v in m.items()})
+    return dict(losses=losses, params=_flat(jax.device_get(state.params)),
+                stats=_flat(jax.device_get(state.batch_stats)), props=props,
+                step=int(state.step))
 
 
 def test_stack_device_batches_matches_jax():

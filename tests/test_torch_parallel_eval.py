@@ -16,6 +16,7 @@ plan, f32, the port's initial weights with random BN statistics).
 * the refusals: more ranks than visible cards (``torch.cuda`` monkeypatched
   to one card), and a mesh with more than one tile per dispatch."""
 
+import concurrent.futures
 import json
 
 import jax
@@ -51,6 +52,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.train.evaluator import FullSce
 from panopticsegforlargescalepointcloud_tpu_torch.train.step import init_params
 from panopticsegforlargescalepointcloud_tpu_torch.weights import flax_paths
 from test_data import make_forest_ply
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -128,19 +130,31 @@ def scenes(request, ply, tmp_path_factory):
     tmp = tmp_path_factory.mktemp(f"setting_{setting}")
     model, params, stats = _model(setting)
     _checkpoint(model, setting, tmp / "ckpt")
-    out = {"seq": (_cli(tmp / "ckpt", ply, tmp / "seq", "tiles_per_dispatch=1"), tmp / "seq")}
-    for d in ((2, 3) if setting == "IV" else (2,)):
-        out[f"mesh{d}"] = (_cli(tmp / "ckpt", ply, tmp / f"mesh{d}", f"num_devices={d}"),
-                           tmp / f"mesh{d}")
+
+    def port_scenes():
+        out = {"seq": (_cli(tmp / "ckpt", ply, tmp / "seq", "tiles_per_dispatch=1"),
+                       tmp / "seq")}
+        for d in ((2, 3) if setting == "IV" else (2,)):
+            out[f"mesh{d}"] = (_cli(tmp / "ckpt", ply, tmp / f"mesh{d}", f"num_devices={d}"),
+                               tmp / f"mesh{d}")
+        return out
+
+    # the port's scenes (their mesh ranks are processes of their own) run
+    # in a second thread while this one runs the JAX evaluator
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        port = pool.submit(port_scenes)
+        if setting == "IV":
+            jcfg = JConfig(**CFG, use_winconv="off", rg_dense="on")
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(native, "available", lambda: False)
+                jds = JDataset(J_TREEINS, [ply], grid_size=0.2, radius=7.0, keep_raw=True)
+                jev = JEvaluator(jcfg, JNet(jcfg), jax.tree.map(jnp.asarray, params),
+                                 jax.tree.map(jnp.asarray, stats), jds, capacity=CAPACITY,
+                                 mesh=j_make_mesh(jax.devices()[:2]))
+                jax_mesh2 = (jev.run(out_dir=str(tmp / "jax_mesh2")), tmp / "jax_mesh2")
+        out = port.result()
     if setting == "IV":
-        jcfg = JConfig(**CFG, use_winconv="off", rg_dense="on")
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(native, "available", lambda: False)
-            jds = JDataset(J_TREEINS, [ply], grid_size=0.2, radius=7.0, keep_raw=True)
-            jev = JEvaluator(jcfg, JNet(jcfg), jax.tree.map(jnp.asarray, params),
-                             jax.tree.map(jnp.asarray, stats), jds, capacity=CAPACITY,
-                             mesh=j_make_mesh(jax.devices()[:2]))
-            out["jax_mesh2"] = (jev.run(out_dir=str(tmp / "jax_mesh2")), tmp / "jax_mesh2")
+        out["jax_mesh2"] = jax_mesh2
     ds = PanopticFileDataset(TREEINS_SPEC, [ply], grid_size=0.2, radius=7.0, keep_raw=True)
     return dict(setting=setting, runs=out, tiles=len(ds.test_tiles(0)), tmp=tmp)
 

@@ -17,6 +17,8 @@ numpy inputs and the same flax weights (``params_from_flax``):
 The JAX side runs in f32 on the CPU, as its own tests run it; the
 hierarchy comes from each package's own ``build_hierarchy`` on the same batch."""
 
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +35,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.train import canonicalize
 from panopticsegforlargescalepointcloud_tpu_torch.weights import flax_paths, params_from_flax
 from test_torch_settings import _random_stats
 from test_torch_train_step import _flat
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -296,10 +299,9 @@ def _backbones(name):
             tpb.PointNet2Backbone(4, **common))
 
 
-@pytest.fixture(scope="module", params=list(BACKBONES))
-def backbone(request, batch):
-    name = request.param
-    jmod, tmod = _backbones(name)
+def _jax_backbone(jmod, batch):
+    """The JAX backbone's init, random BN statistics, and its eval-mode and
+    train-mode applies."""
     jdb, jhier = batch["jdb"], batch["jhier"]
     variables = jax.tree.map(np.asarray, jax.jit(
         lambda f, p, h: jmod.init(jax.random.PRNGKey(1), f, p, h, False))(
@@ -311,8 +313,26 @@ def backbone(request, batch):
     jtrain, upd = jax.jit(lambda v, f, p, h: jmod.apply(
         v, f, p, h, True, MOMENTUM, mutable=["batch_stats", "kp_losses"]))(
             v, jdb.feats, jdb.pos, jhier)
+    return variables["params"], stats, jeval, jtrain, upd
+
+
+@pytest.fixture(scope="module")
+def jax_backbones(batch):
+    """Every backbone's :func:`_jax_backbone`, started at once in two
+    threads of their own: XLA leaves the interpreter lock while it
+    compiles, so the JAX programs compile beside each other and beside the
+    port's runs."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        yield {name: pool.submit(_jax_backbone, _backbones(name)[0], batch)
+               for name in BACKBONES}
+
+
+@pytest.fixture(scope="module", params=list(BACKBONES))
+def backbone(request, batch, jax_backbones):
+    name = request.param
+    params, stats, jeval, jtrain, upd = jax_backbones[name].result()
     db, hier = batch["db"], batch["hier"]
-    tmod = _port(tmod, variables["params"], stats)
+    tmod = _port(_backbones(name)[1], params, stats)
     with torch.no_grad():
         teval, eval_regs = tmod.eval()(db.feats, db.pos, hier)
         ttrain, regs = tmod.train()(db.feats, db.pos, hier, MOMENTUM)

@@ -17,10 +17,16 @@ synthetic tiles in 4,096 rows:
 * the CLIs on the CPU with ``models=panoptic/kpconv_deform
   model_name=KPConvPaper-Deform``: train, resume, forward and eval.
 
+Each model's cases build their own references, so each model has a file of
+its own: the deformable KPConv's are here, with the CLIs;
+``test_torch_point_models_kpconv.py`` and ``_pointnet2.py`` import these
+tests and give them their model.
+
 Weights: the port's initializers as a flax tree, random BN statistics. The
 JAX side runs as its own tests run it: f32, ``use_winconv="off"``,
 ``rg_dense="on"``."""
 
+import concurrent.futures
 import json
 
 import jax
@@ -61,6 +67,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.weights import flax_paths, par
 from test_data import make_forest_ply
 from test_torch_settings import _flax_tree, _nest
 from test_torch_train_step import _flat
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -132,22 +139,39 @@ def _port_step(cfg, params, stats, np_arrays, with_clustering):
     return metrics, flax_paths({n: p.grad for n, p in model.named_parameters()}), props
 
 
-@pytest.fixture(scope="module", params=list(MODELS))
-def model_case(request, arrays):
-    name = request.param
+def run_model_case(name, arrays):
+    """Both packages' eval forwards and first train steps (prepare, full)
+    of model ``name`` from the same weights. The three JAX programs trace,
+    compile and run in threads of their own (XLA leaves the interpreter
+    lock while it compiles) while this thread runs the port."""
     cfg, jcfg = _configs(name)
     params, stats = _flax_tree(cfg, 0)
     np_arrays = tuple(np.asarray(a) for a in arrays)
+    phases = (("prepare", False), ("full", True))
     res = dict(name=name, cfg=cfg)
-    _, res["jout"] = j_make_eval_forward(jcfg, JNet(jcfg))(params, stats, arrays)
-    _, res["tout"] = make_eval_forward(cfg, _port_model(cfg, params, stats),
-                                       device="cpu")(np_arrays)
-    for phase, clustering in (("prepare", False), ("full", True)):
-        res[phase] = dict(zip(("jmetrics", "jgrads", "jprops"),
-                              _jax_step(jcfg, params, stats, arrays, clustering)))
-        res[phase].update(zip(("metrics", "grads", "props"),
-                              _port_step(cfg, params, stats, np_arrays, clustering)))
+    with concurrent.futures.ThreadPoolExecutor(len(phases) + 1) as pool:
+        jout = pool.submit(lambda: j_make_eval_forward(jcfg, JNet(jcfg))(params, stats, arrays))
+        jsteps = {phase: pool.submit(_jax_step, jcfg, params, stats, arrays, clustering)
+                  for phase, clustering in phases}
+        _, res["tout"] = make_eval_forward(cfg, _port_model(cfg, params, stats),
+                                           device="cpu")(np_arrays)
+        for phase, clustering in phases:
+            res[phase] = dict(zip(("metrics", "grads", "props"),
+                                  _port_step(cfg, params, stats, np_arrays, clustering)))
+        _, res["jout"] = jout.result()
+        for phase, _ in phases:
+            res[phase].update(zip(("jmetrics", "jgrads", "jprops"), jsteps[phase].result()))
     return res
+
+
+@pytest.fixture(scope="module", params=["kpconv_deform"])
+def model_case(request, arrays):
+    return run_model_case(request.param, arrays)
+
+
+@pytest.fixture(scope="module", params=["kpconv_deform"])
+def name(request):
+    return request.param
 
 
 @pytest.mark.parametrize("head", ["semantic_logits", "offset_logits", "embed_logits",
@@ -206,7 +230,6 @@ def test_train_step_proposals(model_case):
     assert int(tp.prop_valid.sum()) >= 1
 
 
-@pytest.mark.parametrize("name", list(MODELS))
 def test_weights_round_trip(name, arrays):
     cfg, jcfg = _configs(name)
     model = init_params(PointGroup3HeadsNet(cfg), torch.Generator().manual_seed(4))
@@ -218,11 +241,14 @@ def test_weights_round_trip(name, arrays):
     assert set(back) == set(sd)
     for k, v in sd.items():
         assert torch.equal(back[k], v), k
-    # the flax paths and shapes of the JAX model's own init (backbone and heads)
-    db = j_canon(*arrays)
-    hier = j_hier(db.grid, jcfg.num_down)
-    shapes = jax.eval_shape(lambda: JNet(jcfg).init(
-        jax.random.PRNGKey(0), db.feats, hier, False, pos=db.pos, method=JNet.backbone_heads))
+    # the flax paths and shapes of the JAX model's own init (backbone and
+    # heads), traced from the batch (not compiled)
+    def init(arrays):
+        db = j_canon(*arrays)
+        return JNet(jcfg).init(jax.random.PRNGKey(0), db.feats, j_hier(db.grid, jcfg.num_down),
+                               False, pos=db.pos, method=JNet.backbone_heads)
+
+    shapes = jax.eval_shape(init, arrays)
     want = {"/".join(str(getattr(p, "key", p)) for p in path): tuple(v.shape)
             for tree in (shapes["params"], shapes["batch_stats"])
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}

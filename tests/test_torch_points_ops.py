@@ -11,6 +11,7 @@ import torch
 
 from panopticsegforlargescalepointcloud_tpu.ops import points as jp
 from panopticsegforlargescalepointcloud_tpu_torch.ops import points as tp
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -12,6 +12,7 @@ import pytest
 from panopticsegforlargescalepointcloud_tpu.models import pointgroup3heads as jpg
 from panopticsegforlargescalepointcloud_tpu_torch.models import pointgroup3heads as tpg
 from panopticsegforlargescalepointcloud_tpu_torch.utils import prng
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 KEYS = [0, 1, 7, 2022, 2**31 - 1]
 

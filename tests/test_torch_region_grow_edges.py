@@ -27,6 +27,7 @@ from panopticsegforlargescalepointcloud_tpu.models.pointgroup3heads import (
 from panopticsegforlargescalepointcloud_tpu_torch.cluster import neighbors as tnb
 from panopticsegforlargescalepointcloud_tpu_torch.models import PanopticConfig, build_proposals
 from panopticsegforlargescalepointcloud_tpu_torch.ops.hashing import BitLayout
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

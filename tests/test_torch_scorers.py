@@ -8,10 +8,10 @@ proposals exact, losses within 1e-4, gradients within 1e-3 of max |g|).
 The weights of all three scorer forms (and the mask head) cross
 ``params_from_flax`` / ``flax_paths`` both ways with ``strict=True``
 against the tree the JAX package's init makes (traced, not compiled).
-Then the train and eval CLIs on the CPU at tiny width with the mask head
-and with the encoder scorer."""
+The train and eval CLIs with these forms are in
+``test_torch_scorers_cli.py``."""
 
-import json
+import concurrent.futures
 
 import jax
 import numpy as np
@@ -32,8 +32,6 @@ from panopticsegforlargescalepointcloud_tpu.train.step import (
     canonicalize as j_canon,
     init_state as j_init_state,
 )
-from panopticsegforlargescalepointcloud_tpu_torch.cli import eval as cli_eval
-from panopticsegforlargescalepointcloud_tpu_torch.cli import train as cli_train
 from panopticsegforlargescalepointcloud_tpu_torch.models import PanopticConfig, PointGroup3HeadsNet
 from panopticsegforlargescalepointcloud_tpu_torch.models.modules import PointMLP
 from panopticsegforlargescalepointcloud_tpu_torch.models.plans import scorer_encoder_plan
@@ -43,9 +41,9 @@ from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hie
 from panopticsegforlargescalepointcloud_tpu_torch.ops.sparse import make_grid
 from panopticsegforlargescalepointcloud_tpu_torch.train.step import init_params
 from panopticsegforlargescalepointcloud_tpu_torch.weights import flax_paths, params_from_flax
-from test_data import make_forest_ply
 from test_torch_mask_head import BASE, MASK, _flat, _setup, check_full_steps, full_steps
 from test_torch_settings import _nest, _random_stats
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -141,9 +139,18 @@ def test_mlp_scorer_matches_jax(scorer_grid, train):
             _compare(torch.from_numpy(new[k]), v)
 
 
+@pytest.fixture(scope="module")
+def scorer_setups():
+    """Both scorer forms' setups, their JAX full steps started at once in
+    threads of their own."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        yield {scorer: _setup(dict(BASE, scorer_type=scorer), pool=pool)
+               for scorer in ("encoder", "mlp")}
+
+
 @pytest.mark.parametrize("scorer", ["encoder", "mlp"])
-def test_full_step_matches_jax(scorer):
-    r = full_steps(_setup(dict(BASE, scorer_type=scorer)))
+def test_full_step_matches_jax(scorer, scorer_setups):
+    r = full_steps(scorer_setups[scorer])
     check_full_steps(r)
     assert float(r["tm"]["score_loss"]) > 0 and "mask_loss" not in r["tm"]
     head = {"encoder": "scorer_encoder/PointMLP_0/Dense_0/kernel",
@@ -188,46 +195,3 @@ def test_weights_round_trip_as_jax_tree(variant):
     assert {"scorer", "scorer_encoder", "scorer_mlp"} & names == {
         {"encoder": "scorer_encoder", "mlp": "scorer_mlp"}.get(variant.get("scorer_type"),
                                                                  "scorer")}
-
-
-@pytest.fixture(scope="module")
-def forest(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("forest") / "forest.ply")
-    make_forest_ply(path, np.random.default_rng(2022), n_trees=4, extent=14.0)
-    return path
-
-
-@pytest.mark.parametrize("over", [
-    [f"models.PointGroup-PAPER.{k}={v}" for k, v in MASK.items()]
-    + ["models.PointGroup-PAPER.use_mask_filter_score_feature_start_epoch=1",
-       "models.PointGroup-PAPER.cal_iou_based_on_mask_start_epoch=1"],
-    ["models.PointGroup-PAPER.scorer_type=encoder"],
-], ids=["mask", "encoder"])
-def test_cli_train_then_eval(forest, tmp_path, over):
-    """Two epochs of the tiny model (the second with clustering, past the
-    gates' start epoch 1) on the forest, then the eval CLI with that
-    checkpoint, which rebuilds the same model from the run config."""
-    run_dir = tmp_path / "run"
-    model = "models.PointGroup-PAPER"
-    trainer = cli_train.main([
-        "data=panoptic/treeins_rad8", "backbone=tiny", "device=cpu", "pretty_print=False",
-        "training.epochs=2", "training.batch_size=2", "training.samples_per_epoch=4",
-        "training.num_workers=0", "data.voxel_capacity=4096", "data.eval_voxel_capacity=4096",
-        "data.radius=6", f"checkpoint_dir={run_dir}", f"{model}.feat_size=8",
-        f"{model}.prepare_epoch=1", f"data.files.train=[{forest}]",
-        f"data.files.val=[{forest}]"] + over)
-    pcfg = trainer.pcfg
-    assert pcfg.mask_supervise == ("mask" in over[0]) and pcfg.scorer_type in ("unet",
-                                                                               "encoder")
-    assert list(trainer._full_steps) == [pcfg.gates(2)]
-    lines = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
-    assert len(lines) == 2
-    for line in lines:
-        assert all(np.isfinite(v) for k, v in line.items() if k.startswith("train_"))
-    assert ("train_mask_loss" in lines[1]) == pcfg.mask_supervise
-    assert "train_score_loss" in lines[1] and "train_rg_graph_trunc" in lines[1]
-    reports = cli_eval.main([f"checkpoint_dir={run_dir}", "device=cpu",
-                             f"data.files.test=[{forest}]", f"out_dir={tmp_path / 'eval'}"])
-    assert len(reports) == 1
-    assert all(np.isfinite(reports[0][k]) for k in ("mIoU", "meanPQ", "F1"))
-    assert (tmp_path / "eval" / "Evaluation_0.txt").exists()

@@ -16,6 +16,7 @@ overflow counters (exactly); the first train step's loss terms (rtol 1e-4,
 atol 1e-5) against the JAX package's train-mode forward and losses, and that
 forward's proposals (exactly)."""
 
+import concurrent.futures
 import copy
 
 import jax
@@ -58,6 +59,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.train import (
 )
 from panopticsegforlargescalepointcloud_tpu_torch.train.step import init_params
 from panopticsegforlargescalepointcloud_tpu_torch.weights import flax_paths, params_from_flax
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -108,24 +110,13 @@ def arrays():
     return batch_arrays(collate_tiles(tiles, capacity=4096, num_tiles=2))
 
 
-def run_case(name, overrides, arrays):
-    """The eval forward (per-sample counters ``SEEDS``) and the first full
-    train step (counter ``STEP``) of ``BASE`` with ``overrides``, in both
-    packages, from the same weights."""
-    kw = dict(BASE, **overrides)
-    cfg = PanopticConfig(**kw)
-    jcfg = JConfig(**kw, use_winconv="off", rg_dense="on")
+def jax_case(overrides, arrays, params, stats):
+    """The JAX side of :func:`run_case`: the eval forward (per-sample
+    counters ``SEEDS``) and the train-mode forward's losses and proposals
+    of the first full step (counter ``STEP``)."""
+    jcfg = JConfig(**BASE, **overrides, use_winconv="off", rg_dense="on")
     jmodel = JNet(jcfg)
-    params, stats = _flax_tree(cfg, 0)
-    np_arrays = tuple(np.asarray(a) for a in arrays)
-
-    def port_model():
-        model = PointGroup3HeadsNet(cfg)
-        model.load_state_dict(params_from_flax(params, stats), strict=True)
-        return model
-
     _, jout = j_make_eval_forward(jcfg, jmodel)(params, stats, arrays, subset_seed=SEEDS)
-    _, tout = make_eval_forward(cfg, port_model(), device="cpu")(np_arrays, subset_seed=SEEDS)
 
     def j_step(params, stats, arrays):
         db = j_canon(*arrays)
@@ -138,6 +129,37 @@ def run_case(name, overrides, arrays):
         return dict(losses, hier_overflow=jnp.sum(hier.overflow)), out.proposals
 
     jmetrics, jprops = jax.jit(j_step)(params, stats, arrays)
+    return dict(jout=jout, jmetrics=jax.tree.map(np.asarray, jmetrics), jprops=jprops)
+
+
+def jax_cases(cases, arrays):
+    """Per case its weights (the port's initializers as flax trees) and its
+    :func:`jax_case`, every case started at once in two threads of their
+    own: XLA leaves the interpreter lock while it compiles, so the JAX
+    programs compile beside each other and beside the port's runs. A
+    module fixture yields this and its cases take their results."""
+    weights = {name: _flax_tree(PanopticConfig(**BASE, **over), 0)
+               for name, over in cases.items()}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        yield {name: (*weights[name], pool.submit(jax_case, over, arrays, *weights[name]))
+               for name, over in cases.items()}
+
+
+def run_case(name, overrides, arrays, ref):
+    """The eval forward (per-sample counters ``SEEDS``) and the first full
+    train step (counter ``STEP``) of ``BASE`` with ``overrides``, in both
+    packages, from the same weights; ``ref``: the case's entry of
+    :func:`jax_cases`."""
+    cfg = PanopticConfig(**BASE, **overrides)
+    params, stats, jax_side = ref
+    np_arrays = tuple(np.asarray(a) for a in arrays)
+
+    def port_model():
+        model = PointGroup3HeadsNet(cfg)
+        model.load_state_dict(params_from_flax(params, stats), strict=True)
+        return model
+
+    _, tout = make_eval_forward(cfg, port_model(), device="cpu")(np_arrays, subset_seed=SEEDS)
     model = port_model()
     opt = make_optimizer("Adam", model.parameters())
     for group in opt.param_groups:  # as after STEP mini-batches
@@ -150,14 +172,18 @@ def run_case(name, overrides, arrays):
                                   True, MOMENTUM, subset_seed=STEP).proposals
     metrics = make_train_step(cfg, model, opt, make_lr_schedule("ExponentialLR", {}, 1e-3, 750),
                               True, device="cpu")(np_arrays, MOMENTUM)
-    return dict(name=name, cfg=cfg, jout=jout, tout=tout,
-                jmetrics=jax.tree.map(np.asarray, jmetrics), jprops=jprops, metrics=metrics,
+    return dict(jax_side.result(), name=name, cfg=cfg, tout=tout, metrics=metrics,
                 tprops=tprops)
 
 
+@pytest.fixture(scope="module")
+def jax_refs(arrays):
+    yield from jax_cases(CASES, arrays)
+
+
 @pytest.fixture(scope="module", params=list(CASES))
-def case(request, arrays):
-    return run_case(request.param, CASES[request.param], arrays)
+def case(request, arrays, jax_refs):
+    return run_case(request.param, CASES[request.param], arrays, jax_refs[request.param])
 
 
 def check_heads(case, name):

@@ -36,6 +36,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.models import (
 from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hierarchy
 from panopticsegforlargescalepointcloud_tpu_torch.train import make_eval_forward
 from panopticsegforlargescalepointcloud_tpu_torch.weights import params_from_flax
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -19,6 +19,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.ops import hashing as th
 from panopticsegforlargescalepointcloud_tpu_torch.ops import hierarchy as thier
 from panopticsegforlargescalepointcloud_tpu_torch.ops import scatter as tsc
 from panopticsegforlargescalepointcloud_tpu_torch.ops import sparse as tsp
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -53,6 +53,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.utils.debugging import (
     radius_neighbor_counts,
 )
 from test_data import make_forest_ply
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

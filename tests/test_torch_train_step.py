@@ -24,6 +24,7 @@ kernels take their plain versions. Compared:
 Then five prepare steps of the port alone: every loss finite, the last below
 the first."""
 
+import concurrent.futures
 import copy
 
 import jax
@@ -56,6 +57,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.train import (
     panoptic_forward,
 )
 from panopticsegforlargescalepointcloud_tpu_torch.weights import flax_paths, params_from_flax
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -106,7 +108,8 @@ def _setup():
 
 
 def _jax_step(setup, with_clustering):
-    jcfg, jmodel = setup["jcfg"], setup["jmodel"]
+    jcfg = setup["jcfg"]
+    jmodel = JNet(jcfg)
 
     def loss_fn(params, stats, arrays):
         db = j_canon(*arrays)
@@ -141,10 +144,19 @@ def _port_step(setup, with_clustering, model=None):
     return step, model, opt
 
 
+@pytest.fixture(scope="module")
+def jax_refs(setup):
+    """The two phases' JAX steps, started at once in threads of their own:
+    XLA leaves the interpreter lock while it compiles, so the two programs
+    compile beside each other and beside the port's runs."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        yield {name: pool.submit(_jax_step, setup, name == "full")
+               for name in ("prepare", "full")}
+
+
 @pytest.fixture(scope="module", params=["prepare", "full"])
-def phase(request, setup):
+def phase(request, setup, jax_refs):
     with_clustering = request.param == "full"
-    jmetrics, jstats, jgrads, jprops = _jax_step(setup, with_clustering)
     step, model, opt = _port_step(setup, with_clustering)
     before = copy.deepcopy(model)
     props = None
@@ -159,6 +171,7 @@ def phase(request, setup):
     metrics = step(setup["np_arrays"], MOMENTUM)
     grads = flax_paths({n: p.grad for n, p in model.named_parameters()})
     stats = {k: v for k, v in flax_paths(dict(model.named_buffers())).items()}
+    jmetrics, jstats, jgrads, jprops = jax_refs[request.param].result()
     return dict(name=request.param, jmetrics=jmetrics, jstats=jstats, jgrads=jgrads,
                 jprops=jprops, props=props, metrics=metrics, grads=grads, stats=stats, model=model,
                 before=before, opt=opt)

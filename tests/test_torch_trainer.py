@@ -33,10 +33,12 @@ trainer, the train CLI and the learning run defaulting to the GPU; and the
 validation's PLY dumps (``Visualizer``) byte for byte against the JAX
 package's."""
 
+import concurrent.futures
 import json
 import os.path as osp
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -44,6 +46,7 @@ import yaml
 
 from panopticsegforlargescalepointcloud_tpu.config import load_config as j_load_config
 from panopticsegforlargescalepointcloud_tpu.eval.visualizer import Visualizer as JVisualizer
+from panopticsegforlargescalepointcloud_tpu.train.step import batch_arrays
 from panopticsegforlargescalepointcloud_tpu.train.trainer import Trainer as JTrainer
 from panopticsegforlargescalepointcloud_tpu_torch import smoke_learning
 from panopticsegforlargescalepointcloud_tpu_torch.cli import train as cli_train
@@ -51,6 +54,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.config import load_config
 from panopticsegforlargescalepointcloud_tpu_torch.eval.visualizer import Visualizer
 from panopticsegforlargescalepointcloud_tpu_torch.train.trainer import Trainer
 from panopticsegforlargescalepointcloud_tpu_torch.weights import params_from_flax
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -87,23 +91,40 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("trainer")
     jt = JTrainer(_cfg(), capacity=4096, backbone="tiny", checkpoint_dir=str(tmp / "jax"),
                   **BUDGETS, **JAX_ONLY)
-    pt = Trainer(_cfg(), capacity=4096, backbone="tiny", checkpoint_dir=str(tmp / "port"),
-                 device="cpu", **BUDGETS)
-    params = jax.tree.map(np.asarray, jt.state.params)
-    stats = jax.tree.map(np.asarray, jt.state.batch_stats)
-    pt.model.load_state_dict(params_from_flax(params, stats), strict=True)
-
-    before = (jt.eval_epoch(2, num_batches=1), pt.eval_epoch(2, num_batches=1))
-    jsteps, psteps = [], []
-    jt._prepare_step = _recorded(jt._prepare_step, jsteps, lambda r: r[1])
     build = jt._build_full
-    jt._build_full = lambda epoch: _recorded(build(epoch), jsteps, lambda r: r[1])
-    pt._prepare_step = _recorded(pt._prepare_step, psteps, lambda r: r)
-    full_for = pt._full_step_for
-    pt._full_step_for = lambda epoch: _recorded(full_for(epoch), psteps, lambda r: r)
-    jt.train()
-    pt.train()
-    pt.close()
+    # The JAX trainer's two train steps compile in threads of their own (XLA
+    # leaves the interpreter lock) while the evaluations, the port's
+    # training and its own prepare epoch run: its own prepare step, and the
+    # epoch-2 full step built as it builds it, whose executable the trainer
+    # then finds in JAX's persistent compilation cache when it builds that
+    # step. Each takes a copy of the state (the steps donate it) and a
+    # batch of the trainer's shapes.
+    batch = batch_arrays(jt._collate_one_device(np.random.default_rng(0)))
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        warm_prepare, warm_full = (pool.submit(step, jax.tree.map(jnp.copy, jt.state), batch)
+                                   for step in (jt._prepare_step, build(2)))
+
+        def build_full(epoch):
+            warm_full.result()
+            return _recorded(build(epoch), jsteps, lambda r: r[1])
+
+        pt = Trainer(_cfg(), capacity=4096, backbone="tiny", checkpoint_dir=str(tmp / "port"),
+                     device="cpu", **BUDGETS)
+        params = jax.tree.map(np.asarray, jt.state.params)
+        stats = jax.tree.map(np.asarray, jt.state.batch_stats)
+        pt.model.load_state_dict(params_from_flax(params, stats), strict=True)
+
+        before = (jt.eval_epoch(2, num_batches=1), pt.eval_epoch(2, num_batches=1))
+        jsteps, psteps = [], []
+        jt._prepare_step = _recorded(jt._prepare_step, jsteps, lambda r: r[1])
+        jt._build_full = build_full
+        pt._prepare_step = _recorded(pt._prepare_step, psteps, lambda r: r)
+        full_for = pt._full_step_for
+        pt._full_step_for = lambda epoch: _recorded(full_for(epoch), psteps, lambda r: r)
+        pt.train()
+        pt.close()
+        warm_prepare.result()
+        jt.train()
     after = (jt.eval_epoch(2, num_batches=1), pt.eval_epoch(2, num_batches=1))
     return dict(tmp=tmp, jt=jt, pt=pt, before=before, after=after, steps=(jsteps, psteps))
 

@@ -18,6 +18,7 @@ writes); a resume in both ranks to epoch 2. Then the train CLI with
 ``training.num_devices=2 device=cpu`` and its refusal of more ranks than
 visible cards."""
 
+import concurrent.futures
 import json
 import os.path as osp
 
@@ -25,6 +26,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from panopticsegforlargescalepointcloud_tpu.train.trainer import Trainer as JTrainer
 from panopticsegforlargescalepointcloud_tpu_torch.cli import train as cli_train
@@ -37,8 +39,13 @@ from panopticsegforlargescalepointcloud_tpu_torch.parallel import (
 from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
 from panopticsegforlargescalepointcloud_tpu_torch.train.trainer import Trainer
 from panopticsegforlargescalepointcloud_tpu_torch.weights import params_from_flax
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
+
+# a rank left waiting in a collective fails the fixture after this long,
+# not after the launcher's default of 30 minutes
+RANK_TIMEOUT_S = 300
 
 CONF = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "conf")
 OVERRIDES = ["training.epochs=1", "training.batch_size=1", "training.samples_per_epoch=4",
@@ -91,6 +98,9 @@ def _trainer_worker(mesh, run_dir, state_dict):
         tr.close()
     out = dict(steps=steps, steps_per_epoch=tr.steps_per_epoch, step=tr.state.step,
                checksum=replica_checksum(tr.model), val=vals)
+    # rank 0 writes the checkpoint after the last epoch's step: every rank
+    # reads it only once it is written
+    dist.barrier()
     again = Trainer(_cfg(), capacity=4096, backbone="tiny", checkpoint_dir=run_dir,
                     device="cpu", mesh=mesh, **BUDGETS)
     out["resumed"] = dict(start_epoch=again.start_epoch, step=again.state.step,
@@ -122,8 +132,13 @@ def runs(tmp_path_factory):
         return new_state, metrics
 
     jt._prepare_step = recorded
-    jt.train()
-    ranks = spawn(_trainer_worker, ["cpu", "cpu"], str(tmp / "port"), state_dict)
+    # the port's ranks are processes of their own: they train while this
+    # process runs the JAX trainer
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        port = pool.submit(spawn, _trainer_worker, ["cpu", "cpu"], str(tmp / "port"),
+                           state_dict, timeout_s=RANK_TIMEOUT_S)
+        jt.train()
+        ranks = port.result()
     return dict(tmp=tmp, jt=jt, jsteps=jsteps, ranks=ranks)
 
 

@@ -17,6 +17,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.models.norm import MaskedBatch
 from panopticsegforlargescalepointcloud_tpu_torch.ops.hierarchy import build_hierarchy
 from panopticsegforlargescalepointcloud_tpu_torch.ops.sparse import make_grid
 from panopticsegforlargescalepointcloud_tpu_torch.weights import params_from_flax
+from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -1671,9 +1671,10 @@ class StepRecorder:
 
 def epoch_rows(run_dir: str, calls, steps_per_epoch: int, starts=(1,)):
     """Per epoch: the median s per step, the data and step seconds per step
-    (``StageTimers``' running means in ``metrics.jsonl``, unrolled; a
-    trainer that starts at an epoch of ``starts`` starts its timers anew),
-    the losses, the peak memory of its steps and its validation metrics."""
+    (the running means of the trainer's ``data`` and ``step`` spans in
+    ``metrics.jsonl``, unrolled; a trainer that starts at an epoch of
+    ``starts`` starts its means anew), the losses, the peak memory of its
+    steps and its validation metrics."""
     from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
 
     with open(os.path.join(run_dir, "metrics.jsonl")) as fh:

@@ -34,6 +34,7 @@ from ..models import PointGroup3HeadsNet
 from ..parallel import launch
 from ..train.checkpoint import ModelCheckpoint
 from ..train.evaluator import FullSceneEvaluator, eval_tile_capacity
+from ..utils import trace
 
 CONF_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "conf")
@@ -56,12 +57,21 @@ def model_config(run_cfg):
 def build_evaluator(overrides: List[str], timer: Optional[Callable] = None, mesh=None):
     """(evaluator, run kwargs, out_dir, test files) from CLI overrides;
     with ``mesh`` (:class:`..parallel.Mesh`) this rank's evaluator of a
-    mesh."""
+    mesh. With a ``timer`` the call is recorded as a ``build_evaluator``
+    unit whose ``model`` spans hold the model's rebuild from the checkpoint
+    (:mod:`..utils.trace`); the rest is the test files' read and grid
+    sampling."""
+    with trace.span("build_evaluator", on=timer is not None):
+        return _build_evaluator(overrides, timer, mesh)
+
+
+def _build_evaluator(overrides: List[str], timer: Optional[Callable], mesh):
     cfg = load_config(CONF_DIR, overrides, root="eval.yaml")
     ckpt_dir = cfg.get("checkpoint_dir")
     if not ckpt_dir:
         raise SystemExit("checkpoint_dir=... is required")
-    ckpt = ModelCheckpoint(ckpt_dir)
+    with trace.span("model"):
+        ckpt = ModelCheckpoint(ckpt_dir)
     # the checkpoint's run config rebuilds the model; composed data-group
     # defaults must not clobber its dataset spec, only typed overrides do
     run_cfg = dict(ckpt.run_config) or cfg
@@ -84,15 +94,17 @@ def build_evaluator(overrides: List[str], timer: Optional[Callable] = None, mesh
         pre_collate_transform=data.get("pre_collate_transform"),
         keep_raw=True,
     )
-    model = PointGroup3HeadsNet(pcfg)
-    weights = ckpt.get_weights(str(cfg.get("weight_name", "latest")))
-    model.load_state_dict(weights["state_dict"], strict=True)
+    with trace.span("model"):
+        model = PointGroup3HeadsNet(pcfg)
+        weights = ckpt.get_weights(str(cfg.get("weight_name", "latest")))
+        model.load_state_dict(weights["state_dict"], strict=True)
     default_g = DEFAULT_TILES_PER_DISPATCH if mesh is None else 1
-    evaluator = FullSceneEvaluator(
-        pcfg, model, dataset, eval_tile_capacity(data),
-        tiles_per_dispatch=int(cfg.get("tiles_per_dispatch", default_g)),
-        device=cfg.get("device"), timer=timer, mesh=mesh,
-    )
+    with trace.span("model"):
+        evaluator = FullSceneEvaluator(
+            pcfg, model, dataset, eval_tile_capacity(data),
+            tiles_per_dispatch=int(cfg.get("tiles_per_dispatch", default_g)),
+            device=cfg.get("device"), timer=timer, mesh=mesh,
+        )
     run_kwargs = dict(
         ply_output=bool(cfg.get("tracker_options", {}).get("make_submission", True)),
         # the model config's block-merge threshold, as the JAX CLI passes it

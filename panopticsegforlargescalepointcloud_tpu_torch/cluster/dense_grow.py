@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _cuda
+from ..utils import trace
 
 KERNEL = _cuda.Kernel(
     "dense_pull",
@@ -378,7 +379,8 @@ def dense_components(pos, ids, valid, radius: float, init_labels, max_iters: int
     pointer jumping, from ``init_labels`` (cell_seed_labels contract).
     Returns int32 labels, each component carrying its min member row. The
     pull tables are built once; the loop checks convergence on the host
-    once per iteration."""
+    once per iteration (a ``grow`` host read and a ``grow_rounds`` count,
+    :mod:`..utils.trace`)."""
     t = pos.shape[0]
     qmat, smat = _operands(pos, valid)
     ids = ids.to(torch.int32).contiguous()
@@ -398,8 +400,10 @@ def dense_components(pos, ids, valid, radius: float, init_labels, max_iters: int
 
     labels = init_labels.to(torch.int32)
     for _ in range(max_iters):
+        trace.count("grow_rounds")
         new = pull(pull(labels))
-        changed = bool((new != labels).any())
+        with trace.host_read("grow"):
+            changed = bool((new != labels).any())
         labels = new
         if not changed:
             break

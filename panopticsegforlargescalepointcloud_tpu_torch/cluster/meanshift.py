@@ -21,6 +21,7 @@ import torch
 
 from .. import _cuda
 from ..ops.scatter import scatter_drop, segment_sum
+from ..utils import trace
 
 KERNEL = _cuda.Kernel(
     "meanshift_converge",
@@ -208,7 +209,9 @@ def _dedup_keep(alive: torch.Tensor, order: torch.Tensor, near: torch.Tensor) ->
     keep = alive
     for _ in range(s):
         new = alive & ~(keep[:, :, None] & sup).any(dim=1)
-        if torch.equal(new, keep):
+        with trace.host_read("dedup"):
+            same = torch.equal(new, keep)
+        if same:
             break
         keep = new
     return keep

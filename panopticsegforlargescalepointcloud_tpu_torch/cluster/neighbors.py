@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..ops.hashing import INVALID_KEY, BitLayout, pack_coords
+from ..utils import trace
 
 _MAX_SAMPLES = 256
 
@@ -33,8 +34,9 @@ def _shifted_cells(pos, batch, valid, radius, bits: BitLayout, num_ids: int = _M
     b = batch.clamp(0, num_ids - 1).long()
     cmin = torch.full((num_ids, 3), big, dtype=torch.int32, device=pos.device)
     cmin.scatter_reduce_(0, b[:, None].expand(-1, 3), cellw, reduce="amin", include_self=True)
-    half = torch.tensor([1 << (bits.bx - 1), 1 << (bits.by - 1), 1 << (bits.bz - 1)],
-                        dtype=torch.int32, device=pos.device)
+    with trace.host_read("constant"):
+        half = torch.tensor([1 << (bits.bx - 1), 1 << (bits.by - 1), 1 << (bits.bz - 1)],
+                            dtype=torch.int32, device=pos.device)
     return cell - cmin[b] - half
 
 

@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from ..models.pointgroup3heads import Proposals
+from ..utils import trace
 
 
 def member_ok(props: Proposals, mask_scores=None) -> torch.Tensor:
@@ -30,9 +31,11 @@ def proposal_masks(props: Proposals, num_props: int, num_points: int,
     """Dense [P, N] f32 0/1 membership matrix of the counted members
     (:func:`member_ok`)."""
     ok = member_ok(props, mask_scores) & (props.point_idx >= 0)
-    flat = (props.prop_id.long() * num_points + props.point_idx.long())[ok]
+    with trace.host_read("nonzero"):
+        flat = (props.prop_id.long() * num_points + props.point_idx.long())[ok]
     m = torch.zeros(num_props * num_points, dtype=torch.float32, device=ok.device)
-    m[flat] = 1.0
+    with trace.host_read("constant"):
+        m[flat] = 1.0
     return m.reshape(num_props, num_points)
 
 

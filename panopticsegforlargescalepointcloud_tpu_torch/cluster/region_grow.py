@@ -24,17 +24,15 @@ cross-class edges after it.
 
 from __future__ import annotations
 
-import logging
 from typing import NamedTuple
 
 import torch
 
 from ..ops.hashing import BitLayout
 from ..ops.scatter import scatter_drop, segment_sum
+from ..utils import trace
 from .dense_grow import dense_components, supports_dense
 from .neighbors import DEFAULT_CELL_BITS, cell_seed_labels, radius_graph
-
-log = logging.getLogger(__name__)
 
 
 class RegionGrowResult(NamedTuple):
@@ -159,8 +157,8 @@ def _grow_on_edges(fwd, rev, batch, grow_mask, max_proposals: int, min_cluster_s
     in the JAX package's schedule: each iteration pulls twice, each pull
     followed by three pointer jumps, until nothing changes or after
     ``max_iters`` iterations (where that binds, the labels depend on it).
-    The convergence test reads one flag on the host per iteration; the
-    iteration count goes to this module's debug log."""
+    The convergence test reads one flag on the host per iteration (a
+    ``grow`` host read and a ``grow_rounds`` count, :mod:`..utils.trace`)."""
     n = fwd.shape[0]
     dev = fwd.device
     adj = torch.cat([fwd, rev], dim=1)
@@ -181,12 +179,12 @@ def _grow_on_edges(fwd, rev, batch, grow_mask, max_proposals: int, min_cluster_s
     labels = init_labels.to(torch.int32)
     it, changed = 0, True
     while changed and it < max_iters:
+        trace.count("grow_rounds")
         new = pull(pull(labels))
-        changed = bool((new != labels).any())
+        with trace.host_read("grow"):
+            changed = bool((new != labels).any())
         labels = new
         it += 1
-    log.debug("region growing on edges: %d iterations, %s", it,
-              "converged" if not changed else "stopped at max_iters")
     return _finalize_components(labels, batch, grow_mask, max_proposals, min_cluster_size)
 
 

@@ -24,6 +24,7 @@ import torch
 
 from ..cluster.nms import member_ok, pairwise_iou, proposal_masks
 from ..models.pointgroup3heads import Proposals
+from ..utils import trace
 
 
 def device_part(props: Proposals, scores: Optional[torch.Tensor], num_points: int,
@@ -125,7 +126,11 @@ def pull(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         pad = -b.numel() % 8
         parts.append(b if not pad else torch.cat([b, b.new_zeros(pad)]))
         meta.append((t.dtype, tuple(t.shape), b.numel() + pad))
-    buf = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.uint8)
+    if parts:
+        with trace.host_read("pull"):
+            buf = torch.cat(parts).cpu().numpy()
+    else:
+        buf = np.zeros(0, np.uint8)
     out, ofs = {}, 0
     for name, (dt, shape, nbytes) in zip(names, meta):
         np_dt = torch.empty(0, dtype=dt).numpy().dtype

@@ -1,6 +1,5 @@
 """The flagship configurations, their synthetic inputs and seeded weights,
-shared by ``chip_smoke.py``, :mod:`.trace_eval`, :mod:`.trace_train` and
-:mod:`.bench_conv_parts`.
+shared by ``chip_smoke.py`` and :mod:`.bench_conv_parts`.
 
 * Training and the eval-tile forward: Setting IV
   (``conf/models/panoptic/area4_ablation_3heads_5.yaml``) on the NPM3D

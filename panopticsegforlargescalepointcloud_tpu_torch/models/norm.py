@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils import trace
+
 
 class MaskedBatchNorm(nn.Module):
     """Parameters ``scale``/``bias`` and buffers ``mean``/``var`` carry the
@@ -42,7 +44,8 @@ class MaskedBatchNorm(nn.Module):
             # they keep the unbiased variance, while the batch is normalized
             # with the biased one.
             with torch.no_grad():
-                mom = torch.as_tensor(momentum, dtype=torch.float32, device=x.device)
+                with trace.host_read("bn_momentum"):
+                    mom = torch.as_tensor(momentum, dtype=torch.float32, device=x.device)
                 unbiased = var * (cnt / torch.clamp(cnt - 1.0, min=1.0))
                 self.mean.copy_((1.0 - mom) * self.mean + mom * mean)
                 self.var.copy_((1.0 - mom) * self.var + mom * unbiased)

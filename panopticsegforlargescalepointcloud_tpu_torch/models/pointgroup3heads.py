@@ -14,7 +14,6 @@ and whose coords are centered per proposal) and ``panoptic_losses``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -31,7 +30,7 @@ from ..ops.hashing import BitLayout
 from ..ops.hierarchy import Hierarchy, build_hierarchy
 from ..ops.scatter import scatter_drop, segment_max, segment_min
 from ..ops.sparse import make_grid
-from ..utils import prng
+from ..utils import prng, trace
 from .losses import (
     discriminative_loss,
     instance_iou,
@@ -436,10 +435,6 @@ class PointGroup3HeadsNet(nn.Module):
         return torch.sigmoid(self.scorer_head(cluster_feats))[:, 0], mask_logits
 
 
-def _phase(timer, name):
-    return timer(name) if timer is not None else contextlib.nullcontext()
-
-
 class _Blocks:
     """The membership table under construction: one block of N rows per
     clustering run, in tag order, each with its proposals' validity, sample
@@ -497,7 +492,7 @@ class _Blocks:
 
 
 def _region_grow(cfg: PanopticConfig, grow_pos, pred, batch, thing, timer):
-    with _phase(timer, "region_growing"):
+    with trace.phase(timer, "region_growing"):
         return region_grow_folded(
             grow_pos, pred, batch, thing,
             radius=cfg.cluster_radius,
@@ -556,7 +551,7 @@ def build_proposals(cfg: PanopticConfig, pos, offsets, embeds, sem_logp, batch, 
         # samples with <= 3 thing points are skipped, as in the reference
         counts = dvalid.to(torch.int32).sum(dim=1)
         dvalid = dvalid & (counts > 3)[:, None]
-        with _phase(timer, "mean_shift"):
+        with trace.phase(timer, "mean_shift"):
             ms = mean_shift(dense, dvalid, bandwidth=cfg.bandwidth,
                             max_seeds=cfg.ms_max_seeds)
         blocks.add_per_sample(*_ms_labels(ms, cfg.ms_max_clusters), cfg.ms_max_clusters,
@@ -661,7 +656,7 @@ def _embed_proposals(cfg: PanopticConfig, pos, embeds, pred, batch, thing, subse
         x = (dense[None] * m[:, :, None, :]).reshape(runs * b, cap, d)
         rv = run_valid.repeat(runs, 1)
         if method == "hdbscan":
-            with _phase(timer, "hdbscan"):
+            with trace.phase(timer, "hdbscan"):
                 res = hdbscan_labels(x, rv, min_samples=cfg.hd_min_samples,
                                      min_cluster_size=cfg.hd_min_cluster_size,
                                      epsilon=cfg.hd_epsilon, max_clusters=percap,
@@ -671,7 +666,7 @@ def _embed_proposals(cfg: PanopticConfig, pos, embeds, pred, batch, thing, subse
             width = {"xyz": 3, "embed": cfg.embed_dim, "both": d}[space]
             width = min(width, high) if loops > 0 else width
             cols = torch.from_numpy(_mask_columns(masks, width)).to(dev)
-            with _phase(timer, "mean_shift"):
+            with trace.phase(timer, "mean_shift"):
                 ms = mean_shift(x, rv, bandwidth=cfg.bandwidth, max_seeds=cfg.ms_max_seeds,
                                 cols=cols)
             lab, ncl = _ms_labels(ms, percap)
@@ -702,8 +697,9 @@ def scorer_inputs(cfg: PanopticConfig, props: Proposals, coords, backbone_feats)
                        cfg.total_props, fill=0)
     center = (cmin + cmax) >> 1
     rel = c - center[props.prop_id.clamp(min=0).long()]
-    half = torch.tensor([1 << (bits.bx - 1), 1 << (bits.by - 1), 1 << (bits.bz - 1)],
-                        dtype=torch.int32, device=dev)
+    with trace.host_read("constant"):
+        half = torch.tensor([1 << (bits.bx - 1), 1 << (bits.by - 1), 1 << (bits.bz - 1)],
+                            dtype=torch.int32, device=dev)
     in_budget = ((rel >= -half) & (rel < half)).all(dim=-1)
     overflow = (ok & ~in_budget).sum().to(torch.int32)
     grid, inverse = make_grid(seg, rel, ok, bits=bits, capacity=m)

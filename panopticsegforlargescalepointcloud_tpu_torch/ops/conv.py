@@ -33,6 +33,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from .. import _cuda
+from ..utils import trace
 
 KERNEL = _cuda.Kernel(
     "sparse_conv_fwd",
@@ -339,19 +340,23 @@ class _SparseConvTM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, weights, idx, idx_t):
         ctx.save_for_backward(feats, weights, idx, idx_t)
+        # autograd's device thread runs the backward: it records it in the
+        # unit (the step) that ran the forward
+        ctx.unit = trace.unit()
         return sparse_conv_fwd(feats, idx, weights)
 
     @staticmethod
     def backward(ctx, g):
-        feats, weights, idx, idx_t = ctx.saved_tensors
-        gq = g.to(feats.dtype).contiguous()
-        gf = gw = None
-        if ctx.needs_input_grad[0]:
-            w_t = weights.flip(0).transpose(1, 2).contiguous()
-            gf = sparse_conv_fwd(gq, idx_t, w_t, kernel=KERNEL_DX).to(feats.dtype)
-        if ctx.needs_input_grad[1]:
-            gw = sparse_conv_dw(feats, idx, gq).to(weights.dtype)
-        return gf, gw, None, None
+        with trace.span("conv_backward", unit=ctx.unit):
+            feats, weights, idx, idx_t = ctx.saved_tensors
+            gq = g.to(feats.dtype).contiguous()
+            gf = gw = None
+            if ctx.needs_input_grad[0]:
+                w_t = weights.flip(0).transpose(1, 2).contiguous()
+                gf = sparse_conv_fwd(gq, idx_t, w_t, kernel=KERNEL_DX).to(feats.dtype)
+            if ctx.needs_input_grad[1]:
+                gw = sparse_conv_dw(feats, idx, gq).to(weights.dtype)
+            return gf, gw, None, None
 
 
 def sparse_conv(feats: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,

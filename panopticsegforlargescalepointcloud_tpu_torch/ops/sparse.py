@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .hashing import DEFAULT_BITS, INVALID_KEY, BitLayout, lookup, pack_coords
+from ..utils import trace
 from .scatter import scatter_drop
 
 
@@ -109,7 +110,8 @@ def same_level_map(
     k = kernel_offsets.shape[0]
     kq = (k - 1) // 2
     dev = grid.coords.device
-    offs = torch.as_tensor(kernel_offsets[:kq], device=dev)
+    with trace.host_read("constant"):
+        offs = torch.as_tensor(kernel_offsets[:kq], device=dev)
     q_coords = grid.coords[:, None, :] + offs[None, :, :]
     q_batch = grid.batch[:, None].expand(n, kq)
     invalid = (~grid.mask)[:, None].expand(n, kq)
@@ -329,7 +331,9 @@ def _pad_rows(table: torch.Tensor) -> torch.Tensor:
 
 def _parity_permute(table_nk: torch.Tensor, parity: torch.Tensor, perm: np.ndarray):
     """out[i, k] = table_nk[i, perm[parity[i], k]]."""
-    p = torch.as_tensor(perm, device=table_nk.device)[parity.long()]
+    with trace.host_read("constant"):
+        p = torch.as_tensor(perm, device=table_nk.device)
+    p = p[parity.long()]
     return torch.gather(table_nk, 1, p)
 
 
@@ -420,9 +424,13 @@ def derive_level_maps(
         ],
         dim=1,
     )  # [Nc, 64]
-    down = dvals[:, torch.as_tensor(_BOX_DCOL64, device=dev)]
+    with trace.host_read("constant"):
+        dcol = torch.as_tensor(_BOX_DCOL64, device=dev)
+    down = dvals[:, dcol]
 
     up = _parity_permute(pnbr, parity, _UP_KOFF)
-    up_ok = torch.as_tensor(_UP_VALID, device=dev)[parity.long()] & fine.mask[:, None]
+    with trace.host_read("constant"):
+        up_valid = torch.as_tensor(_UP_VALID, device=dev)
+    up_ok = up_valid[parity.long()] & fine.mask[:, None]
     up = torch.where(up_ok, up, torch.full_like(up, -1))
     return same, down, up

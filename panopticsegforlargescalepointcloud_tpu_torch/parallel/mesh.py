@@ -47,9 +47,10 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..eval.extract import dispatch_outputs, pull
 from ..models.norm import MaskedBatchNorm
-from ..models.pointgroup3heads import PanopticConfig, PointGroup3HeadsNet, _phase
+from ..models.pointgroup3heads import PanopticConfig, PointGroup3HeadsNet
 from ..train.optim import Schedule, optimizer_step
 from ..train.step import make_eval_forward, make_loss_and_grads
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,7 +225,7 @@ def make_parallel_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
         # the loss terms follow from the config, so every rank has the same
         # names; sorted, they lay out the buffer alike everywhere
         names = sorted(metrics)
-        with torch.no_grad(), _phase(timer, "all_reduce"):
+        with torch.no_grad(), trace.phase(timer, "all_reduce"):
             flat = torch.cat([_flat([p.grad for p in params] + stats),
                               torch.stack([metrics[k].float() for k in names])])
             all_reduce_sum_(mesh, flat)
@@ -233,7 +234,7 @@ def make_parallel_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
             reduced = flat[n_mean:]
             out = {k: (reduced[i] if k == "hier_overflow" else reduced[i] / mesh.size)
                    for i, k in enumerate(names)}
-        with torch.no_grad(), _phase(timer, "optimizer"):
+        with torch.no_grad(), trace.phase(timer, "optimizer"):
             if grad_clip_value is not None:
                 torch.nn.utils.clip_grad_value_(params, grad_clip_value)
             optimizer_step(optimizer, schedule, grad_accum)

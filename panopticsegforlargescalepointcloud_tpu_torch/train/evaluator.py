@@ -19,7 +19,6 @@ package's one-deep pipeline would not hide it.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
 import os
@@ -35,6 +34,7 @@ from ..eval.extract import COUNTERS, dispatch_outputs, host_part, pull
 from ..eval.merge import SceneAccumulator
 from ..eval.panoptic_quality import final_eval
 from ..models.pointgroup3heads import PanopticConfig, PointGroup3HeadsNet
+from ..utils import trace
 from .step import make_eval_forward
 
 log = logging.getLogger(__name__)
@@ -125,9 +125,6 @@ class FullSceneEvaluator:
             self._fwd = make_eval_forward(self.fcfg, model, device=self.device, timer=timer)
         self.last_overflow = dict.fromkeys(COUNTERS, 0)
 
-    def _phase(self, name):
-        return self.timer(name) if self.timer is not None else contextlib.nullcontext()
-
     def run(
         self,
         out_dir: str = ".",
@@ -136,20 +133,23 @@ class FullSceneEvaluator:
         voting_runs: int = 1,
     ) -> List[Dict[str, float]]:
         """Predict every test file and write its report (and, with
-        ``ply_output``, its PLYs) into ``out_dir``; returns the reports."""
-        root = self.mesh is None or self.mesh.is_root
-        if root:
-            os.makedirs(out_dir, exist_ok=True)
-        self.last_overflow = dict.fromkeys(COUNTERS, 0)
-        reports = []
-        for fi in range(len(self.dataset.files)):
-            sem, ins, acc = self.predict(fi, th_merge, voting_runs)
-            if not root:
-                continue
-            with self._phase("report"):
-                reports.append(self._report(fi, self.dataset.raw_clouds[fi], sem, ins, acc,
-                                            out_dir, ply_output))
-        return reports if root else None
+        ``ply_output``, its PLYs) into ``out_dir``; returns the reports.
+        With a ``timer`` the call is recorded as a ``scene`` unit
+        (:mod:`..utils.trace`)."""
+        with trace.span("scene", on=self.timer is not None):
+            root = self.mesh is None or self.mesh.is_root
+            if root:
+                os.makedirs(out_dir, exist_ok=True)
+            self.last_overflow = dict.fromkeys(COUNTERS, 0)
+            reports = []
+            for fi in range(len(self.dataset.files)):
+                sem, ins, acc = self.predict(fi, th_merge, voting_runs)
+                if not root:
+                    continue
+                with trace.phase(self.timer, "report"):
+                    reports.append(self._report(fi, self.dataset.raw_clouds[fi], sem, ins,
+                                                acc, out_dir, ply_output))
+            return reports if root else None
 
     def predict(self, fi: int, th_merge: Optional[float] = None, voting_runs: int = 1):
         """(semantic, instance, accumulator) of test file ``fi``: per-point
@@ -162,7 +162,7 @@ class FullSceneEvaluator:
         runs = max(int(voting_runs), 1)
         for vote in range(runs):
             # each voting run re-tiles with a shifted grid origin
-            with self._phase("tiling"):
+            with trace.phase(self.timer, "tiling"):
                 tiles = self.dataset.test_tiles(fi, grid_shift=vote / runs)
             if vote == 0:
                 log.info("file %d: %d tiles x %d votes", fi, len(tiles), runs)
@@ -175,7 +175,7 @@ class FullSceneEvaluator:
                 # the last group pads by repeating its final tile; padded
                 # samples are computed but never accumulated
                 padded = group + [group[-1]] * (g - len(group))
-                with self._phase("collate"):
+                with trace.phase(self.timer, "collate"):
                     vb = collate_tiles([t for t, _ in padded],
                                        capacity=self.capacity * g, num_tiles=g)
                 # the embed family's subsets: one counter per (vote, tile),
@@ -186,7 +186,7 @@ class FullSceneEvaluator:
                 self._accumulate_dispatch(acc, db, out, [ids for _, ids in group], th)
         if self.mesh is not None and not self.mesh.is_root:
             return None, None, None
-        with self._phase("finalise"):
+        with trace.phase(self.timer, "finalise"):
             sem, ins = acc.finalise(
                 stuff_classes=self.pcfg.stuff_classes,
                 distance_cutoff=1.0,
@@ -200,12 +200,15 @@ class FullSceneEvaluator:
         if ply_output:
             # reference-exporter-compatible files (ASCII, int16 preds/gt)
             # and the colored instance dump
-            to_eval_ply(osp.join(out_dir, f"Semantic_results_forEval_{fi}.ply"),
-                        raw["pos"], sem, gt_sem)
-            to_eval_ply(osp.join(out_dir, f"Instance_Results_forEval{fi}.ply"),
-                        raw["pos"], ins, gt_ins)
-            to_ins_ply(osp.join(out_dir, f"Instance_results_withColor_{fi}.ply"),
-                       raw["pos"], ins)
+            with trace.span("ply_write"):
+                to_eval_ply(osp.join(out_dir, f"Semantic_results_forEval_{fi}.ply"),
+                            raw["pos"], sem, gt_sem)
+            with trace.span("ply_write"):
+                to_eval_ply(osp.join(out_dir, f"Instance_Results_forEval{fi}.ply"),
+                            raw["pos"], ins, gt_ins)
+            with trace.span("ply_write"):
+                to_ins_ply(osp.join(out_dir, f"Instance_results_withColor_{fi}.ply"),
+                           raw["pos"], ins)
         report = final_eval(
             sem,
             ins,
@@ -230,7 +233,7 @@ class FullSceneEvaluator:
         for start in range(0, len(tiles), d):
             group = tiles[start:start + d]
             padded = group + [group[-1]] * (d - len(group))
-            with self._phase("collate"):
+            with trace.phase(self.timer, "collate"):
                 vb = collate_tiles([padded[rank][0]], capacity=self.capacity, num_tiles=1)
             outs = self._pfwd(batch_arrays(vb), subset_seed=seed_base + start + rank)
             if outs is None:
@@ -242,14 +245,14 @@ class FullSceneEvaluator:
         """Pull one dispatch's outputs to the host in one copy and
         accumulate its real tiles in order (``ids_list``: per-tile
         full-cloud index arrays; padded repeat samples are skipped)."""
-        with self._phase("extract"):
+        with trace.phase(self.timer, "extract"):
             host = pull(dispatch_outputs(db, out))  # one device-to-host copy
         self._merge_host(acc, host, ids_list, th)
 
     def _merge_host(self, acc, host, ids_list, th):
         """NMS and block merging of one dispatch's pulled outputs
         (:func:`..eval.extract.dispatch_outputs`), tile by tile."""
-        with self._phase("extract"):
+        with trace.phase(self.timer, "extract"):
             props = {k[2:]: v for k, v in host.items() if k.startswith("p_")}
             for k in self.last_overflow:
                 self.last_overflow[k] += int(host.get(k, 0))
@@ -262,7 +265,7 @@ class FullSceneEvaluator:
                           min_score=self.pcfg.min_score)
                 for ti in range(len(ids_list))
             ]
-        with self._phase("merge"):
+        with trace.phase(self.timer, "merge"):
             for ti, (tile_full_ids, (clusters, kept)) in enumerate(
                     zip(ids_list, tile_clusters)):
                 sel = host["mask"] & (host["batch"] == ti)

@@ -16,6 +16,7 @@ ScoreNet and its score loss).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -31,7 +32,6 @@ from ..models.pointgroup3heads import (
     PanopticConfig,
     PanopticOutput,
     PointGroup3HeadsNet,
-    _phase,
     build_proposals,
     panoptic_losses,
     scorer_inputs,
@@ -39,6 +39,7 @@ from ..models.pointgroup3heads import (
 from ..ops.hierarchy import Hierarchy, build_hierarchy
 from ..ops.scatter import segment_max, segment_mean
 from ..ops.sparse import SparseGrid, make_grid
+from ..utils import trace
 from .optim import Schedule, make_optimizer, optimizer_step
 
 
@@ -58,7 +59,8 @@ class DeviceBatch(NamedTuple):
 def _as_tensor(a, device):
     if isinstance(a, np.ndarray):
         a = torch.from_numpy(np.array(a))  # a copy: callers may pass read-only views
-    return a.to(device)
+    with trace.host_read("batch"):
+        return a.to(device)
 
 
 def canonicalize(coords, batch, mask, feats, pos, y, instance_labels, vote_label,
@@ -119,7 +121,7 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
     each phase. ``epoch``: the mask head's epoch gates
     (:meth:`..models.pointgroup3heads.PanopticConfig.gates`; None opens
     them)."""
-    with _phase(timer, "backbone_heads"):
+    with trace.phase(timer, "backbone_heads"):
         x, sem, off, emb, internal = model.backbone_heads(db.feats, hier, momentum,
                                                           pos=db.pos)
     internal = internal or None
@@ -139,7 +141,7 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
         scores = torch.exp(mean_logp).max(dim=-1).values
         scores = torch.where(props.prop_valid, scores, torch.zeros_like(scores))
     elif cfg.use_score_net:
-        with _phase(timer, "scorenet"):
+        with trace.phase(timer, "scorenet"):
             sg, shier, sfeats, member_row, scorer_overflow = scorer_inputs(
                 cfg, props, db.grid.coords, x)
             scores, mask_logits = model.score(sfeats, shier, sg.batch, cfg.total_props,
@@ -177,13 +179,16 @@ def make_eval_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, device=No
     trainer's validation before the full phase). ``epoch``: the mask head's
     epoch gates, as in training at that epoch; None (serving) opens them."""
     dev = resolve_device(device)
-    model.to(dev)
+    moves = sum(t.device.type != dev.type for t in itertools.chain(model.parameters(),
+                                                                    model.buffers()))
+    with trace.host_read("model_to", moves):  # one upload a tensor that moves
+        model.to(dev)
     embed = cfg.model_family == "embed"
 
     @torch.no_grad()
     def fwd(arrays, subset_seed=None):
         model.eval()
-        with _phase(timer, "hierarchy"):
+        with trace.phase(timer, "hierarchy"):
             db = canonicalize(*arrays, device=dev)
             hier = build_hierarchy(db.grid, cfg.num_down, device=dev)
         seed = (0 if subset_seed is None else subset_seed) if embed else None
@@ -291,18 +296,18 @@ def make_loss_and_grads(cfg: PanopticConfig, model: PointGroup3HeadsNet, with_cl
 
     def grads_of(arrays, bn_momentum, subset_seed) -> Dict[str, torch.Tensor]:
         model.train()
-        with torch.no_grad(), _phase(timer, "hierarchy"):
+        with torch.no_grad(), trace.phase(timer, "hierarchy"):
             db = canonicalize(*arrays, device=dev)
             hier = build_hierarchy(db.grid, cfg.num_down, device=dev)
         for p in params:
             p.grad = None
         out = panoptic_forward(cfg, model, db, hier, with_clustering, bn_momentum, timer,
                                subset_seed=subset_seed, epoch=epoch)
-        with _phase(timer, "losses"):
+        with trace.phase(timer, "losses"):
             total, losses = panoptic_losses(cfg, out, db.y, db.vote_label, db.instance_labels,
                                             db.instance_mask, db.grid.batch, db.grid.mask, cw,
                                             epoch)
-        with _phase(timer, "backward"):
+        with trace.phase(timer, "backward"):
             total.backward()
         with torch.no_grad():
             for p in params:
@@ -331,7 +336,8 @@ def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
     unless ``device="cpu"``; moves the model there. ``grad_clip_value``
     clips each gradient element to [-v, v]. ``timer(name)``, when given,
     wraps each phase (hierarchy, backbone_heads, region_growing,
-    mean_shift, scorenet, losses, backward, optimizer). ``epoch``: the mask
+    mean_shift, scorenet, losses, backward, optimizer), and the step is
+    recorded as a ``train_step`` unit (:mod:`..utils.trace`). ``epoch``: the mask
     head's epoch gates (None opens them); the trainer builds one step per
     gate state."""
     grads_of = make_loss_and_grads(cfg, model, with_clustering, class_weights, device, timer,
@@ -339,14 +345,15 @@ def make_train_step(cfg: PanopticConfig, model: PointGroup3HeadsNet,
     params = list(model.parameters())
 
     def step(arrays, bn_momentum=0.1) -> Dict[str, torch.Tensor]:
-        # the embed family's subsets are drawn from the count of
-        # mini-batches taken, as the JAX step passes ``state.step``
-        count = int(optimizer.param_groups[0].get("calls", 0))
-        metrics = grads_of(arrays, bn_momentum, count)
-        with torch.no_grad(), _phase(timer, "optimizer"):
-            if grad_clip_value is not None:
-                torch.nn.utils.clip_grad_value_(params, grad_clip_value)
-            optimizer_step(optimizer, schedule, grad_accum)
-        return metrics
+        with trace.span("train_step", on=timer is not None):
+            # the embed family's subsets are drawn from the count of
+            # mini-batches taken, as the JAX step passes ``state.step``
+            count = int(optimizer.param_groups[0].get("calls", 0))
+            metrics = grads_of(arrays, bn_momentum, count)
+            with torch.no_grad(), trace.phase(timer, "optimizer"):
+                if grad_clip_value is not None:
+                    torch.nn.utils.clip_grad_value_(params, grad_clip_value)
+                optimizer_step(optimizer, schedule, grad_accum)
+            return metrics
 
     return step

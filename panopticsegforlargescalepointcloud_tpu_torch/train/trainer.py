@@ -59,7 +59,7 @@ from ..eval.extract import device_part, host_part, pull
 from ..eval.instance_metrics import InstanceAPMeter, _Instance, compute_acc, compute_eval
 from ..eval.visualizer import Visualizer
 from ..models.pointgroup3heads import PointGroup3HeadsNet
-from ..utils.timer import StageTimers
+from ..utils import trace
 from ..utils.wandb_utils import WandbLogger
 from .checkpoint import ModelCheckpoint
 from .optim import apply_plateau_scale, build_from_config
@@ -186,7 +186,9 @@ class Trainer:
             run_dir=checkpoint_dir or self.tcfg.checkpoint_dir or ".",
             tensorboard=bool(tb_cfg.get("log", False)),
         ) if self.is_root else None
-        self.timers = StageTimers()
+        # seconds and count of the data waits and steps taken, read from
+        # the recorder's ``data`` and ``step`` spans: ``time_data``, ``time_step``
+        self._stage_s: Dict[str, List[float]] = {}
         viz_cfg = cfg.get("visualization", {}) or {}
         self.visualizer = (
             Visualizer(
@@ -335,7 +337,7 @@ class Trainer:
         find_nbr = bool((self.cfg.get("debugging", {}) or {}).get("find_neighbour_dist"))
         nbr_stats: Dict[str, float] = {}
         for bi in range(num_batches):
-            with self.timers.time("data"):
+            with trace.span("data", alone=True) as data:
                 vb = self._next_batch()
                 if find_nbr and bi == 0:
                     # neighbour counts at the clustering radius on the first
@@ -355,20 +357,30 @@ class Trainer:
                     from ..parallel import shard_batch
 
                     arrays = shard_batch(self.mesh, arrays)
-            with self.timers.time("step"):
+            with trace.span("step", alone=True) as stage:
                 # reading the metrics as floats waits for the device: the
                 # stage ends in a synchronize
                 metrics = {k: float(v) for k, v in step(arrays, self.state.bn_momentum).items()}
+            self._read_stages(data, stage)
             for k, v in metrics.items():
                 agg[k] = agg.get(k, 0.0) + v
         out = {k: v / num_batches for k, v in agg.items()}
         out.update(nbr_stats)
         opt_steps = self.state.step // max(self.tcfg.grad_accum, 1)
         out["lr"] = float(self.lr_schedule(opt_steps))
-        out.update({f"time_{k}": v for k, v in self.timers.summary().items()})
+        out.update({f"time_{k}": s / n for k, (s, n) in self._stage_s.items()})
         if self.logger is not None:
             self.logger.log({f"train_{k}": v for k, v in out.items()}, step=self.state.step)
         return out
+
+    def _read_stages(self, *spans) -> None:
+        """Take the ``data`` and ``step`` spans' records from the recorder
+        into the running means; its other records stay for their readers."""
+        for span in spans:
+            r = trace.take(span)
+            acc = self._stage_s.setdefault(r.name, [0.0, 0])
+            acc[0] += (r.end_ns - r.start_ns) / 1e9
+            acc[1] += 1
 
     def _validate(self, epoch: int, num_batches: int) -> Dict[str, float]:
         """:meth:`eval_epoch`; on a mesh on rank 0 alone, while the other

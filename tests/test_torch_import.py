@@ -56,7 +56,6 @@ def test_package_import_leaves_jax_unloaded():
         "import panopticsegforlargescalepointcloud_tpu_torch.flagship\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.train.optim\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.models.losses\n"
-        "import panopticsegforlargescalepointcloud_tpu_torch.trace_train\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.cli.eval\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.train.evaluator\n"
         "import panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint\n"

@@ -28,7 +28,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from ..data import PanopticFileDataset, batch_arrays, collate_tiles
-from ..data.ply import to_eval_ply, to_ins_ply
+from ..data.ply import write_report_plys
 from ..device import resolve_device
 from ..eval.extract import COUNTERS, dispatch_outputs, host_part, pull
 from ..eval.merge import SceneAccumulator
@@ -199,16 +199,11 @@ class FullSceneEvaluator:
         gt_ins = raw["instance_labels"]
         if ply_output:
             # reference-exporter-compatible files (ASCII, int16 preds/gt)
-            # and the colored instance dump
-            with trace.span("ply_write"):
-                to_eval_ply(osp.join(out_dir, f"Semantic_results_forEval_{fi}.ply"),
-                            raw["pos"], sem, gt_sem)
-            with trace.span("ply_write"):
-                to_eval_ply(osp.join(out_dir, f"Instance_Results_forEval{fi}.ply"),
-                            raw["pos"], ins, gt_ins)
-            with trace.span("ply_write"):
-                to_ins_ply(osp.join(out_dir, f"Instance_results_withColor_{fi}.ply"),
-                           raw["pos"], ins)
+            # and the colored instance dump, a ply_write span each
+            write_report_plys([osp.join(out_dir, f"Semantic_results_forEval_{fi}.ply"),
+                               osp.join(out_dir, f"Instance_Results_forEval{fi}.ply"),
+                               osp.join(out_dir, f"Instance_results_withColor_{fi}.ply")],
+                              raw["pos"], sem, ins, gt_sem, gt_ins)
         report = final_eval(
             sem,
             ins,

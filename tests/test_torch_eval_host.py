@@ -36,6 +36,7 @@ from panopticsegforlargescalepointcloud_tpu_torch.eval.extract import extract_cl
 from panopticsegforlargescalepointcloud_tpu_torch.eval.panoptic_quality import final_eval
 from panopticsegforlargescalepointcloud_tpu_torch.models import Proposals
 from panopticsegforlargescalepointcloud_tpu_torch.train.checkpoint import ModelCheckpoint
+from panopticsegforlargescalepointcloud_tpu_torch.utils import trace
 from test_data import make_forest_ply
 from torch_jax_cache import jax_compilation_cache  # noqa: F401 (autouse)
 
@@ -50,15 +51,54 @@ def numpy_paths(monkeypatch):
 # ------------------------------------------------------------------ PLY io
 
 
+# float32 values whose %.9g is an exact decimal tie (k/8 with a 7-digit
+# integer part: the 10th digit is a 5), or prints with an exponent
+# (< 1e-4, >= 1e9, the rounding carry at 999999.9999 and 9.99999997e-05),
+# negative zero, subnormals and non-finite values
+F32_TIES = [1234567.125, 1234567.375, 1234567.625, 1234567.875, -2097151.125, 0.5, -0.5]
+F32_EDGES = [1e-5, -3.5e-7, 9.99999997e-05, 1e-4, 999999999.0, 1e9, -2.5e10, 3.4028235e38,
+             1e-45, -1.17549435e-38, 5.9e-39, -0.0, 0.0, 999999.9999, 123456789.0,
+             np.inf, -np.inf, np.nan]
+F64_EDGES = [0.1, 1 / 3, -2 / 3, 1e300, -1e-300, 5e-324, 2.0 ** 53 + 1, 123456789.123456789,
+             -0.0, np.nan]
+
+
+def _ply_case(case, rng):
+    """(columns, names, block) of a write_ply case; block: _BLOCK in force."""
+    n = {"empty": 0, "one_row": 1, "blocks": 50}.get(case, 60)
+    f32 = rng.normal(size=(n, 3)).astype(np.float32)
+    f64 = rng.normal(size=n) * 1e3
+    i32 = rng.integers(-5, 5, n).astype(np.int32)
+    u8 = rng.integers(0, 255, n).astype(np.uint8)
+    if case == "ties":
+        f32[:len(F32_TIES), 0] = F32_TIES
+        f32[:, 1] = f32[:, 0] / 8
+    elif case == "exponents":
+        f32[:len(F32_EDGES), 0] = F32_EDGES
+        f32[:len(F32_EDGES), 2] = F32_EDGES[::-1]
+    elif case == "float64":
+        f64[:len(F64_EDGES)] = F64_EDGES
+    elif case == "int_extremes":
+        i16 = rng.integers(-5, 5, n).astype(np.int16)
+        i16[:2] = [-32768, 32767]
+        i32[:4] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max, 0, -1]
+        u8[:2] = [0, 255]
+        return ([f32, i16, i32, u8, f64], ["x", "y", "z", "s", "label", "red", "value"], 8192)
+    cols = [f32, i32, u8, f64]
+    return cols, ["x", "y", "z", "label", "red", "value"], 7 if case == "blocks" else 8192
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "exponents", "float64", "int_extremes",
+                                  "empty", "one_row", "blocks"])
 @pytest.mark.parametrize("text", [False, True])
-def test_ply_roundtrip_and_bytes_match_jax(tmp_path, text):
-    rng = np.random.default_rng(0)
-    cols = [rng.normal(size=(50, 3)).astype(np.float32), rng.integers(-5, 5, 50).astype(np.int32),
-            rng.integers(0, 255, 50).astype(np.uint8), rng.normal(size=50)]
-    names = ["x", "y", "z", "label", "red", "value"]
+def test_ply_roundtrip_and_bytes_match_jax(tmp_path, monkeypatch, text, case):
+    cols, names, block = _ply_case(case, np.random.default_rng(0))
+    monkeypatch.setattr(ply, "_BLOCK", block)  # 50 rows of 7: 8 blocks, the last of 1
     ply.write_ply(str(tmp_path / "port.ply"), cols, names, text=text)
     j_ply.write_ply(str(tmp_path / "jax.ply"), cols, names, text=text)
     assert (tmp_path / "port.ply").read_bytes() == (tmp_path / "jax.ply").read_bytes()
+    if case == "empty":
+        return  # neither reader takes an ASCII body of no rows
     back = ply.read_ply(str(tmp_path / "port.ply"))
     want = j_ply.read_ply(str(tmp_path / "jax.ply"))
     assert list(back) == names
@@ -66,16 +106,64 @@ def test_ply_roundtrip_and_bytes_match_jax(tmp_path, text):
         np.testing.assert_array_equal(back[k], want[k])
 
 
+def _export_case(case, rng):
+    """(pos, pred, gt, block) of a to_eval_ply / to_ins_ply case."""
+    n = {"empty": 0, "one_row": 1, "blocks": 50}.get(case, 200)
+    pos = rng.normal(size=(n, 3)).astype(np.float32)
+    pred = rng.integers(-1, 6, n)  # -1: an instance id that is no instance
+    gt = rng.integers(0, 6, n)
+    if case == "ties":
+        pos[:len(F32_TIES), 0] = F32_TIES
+    elif case == "exponents":
+        pos[:len(F32_EDGES), 1] = F32_EDGES
+    elif case == "int_extremes":
+        pred[:4] = [-32768, 32767, -1, 70000]  # int16 extremes, and one that wraps
+        gt[:2] = [-32768, 32767]
+    elif case == "float64":
+        pos = pos.astype(np.float64) / 3  # rounded to float32 by the writer
+    return pos, pred, gt, 7 if case == "blocks" else 8192
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "exponents", "float64", "int_extremes",
+                                  "empty", "one_row", "blocks"])
 @pytest.mark.parametrize("writer", ["to_eval_ply", "to_ins_ply"])
-def test_eval_exports_byte_identical(tmp_path, writer):
-    rng = np.random.default_rng(1)
-    pos = rng.normal(size=(200, 3)).astype(np.float32)
-    pred = rng.integers(-1, 6, 200)
-    gt = rng.integers(0, 6, 200)
+def test_eval_exports_byte_identical(tmp_path, monkeypatch, writer, case):
+    pos, pred, gt, block = _export_case(case, np.random.default_rng(1))
+    monkeypatch.setattr(ply, "_BLOCK", block)
     args = (pos, pred, gt) if writer == "to_eval_ply" else (pos, pred)
     getattr(ply, writer)(str(tmp_path / "port.ply"), *args)
     getattr(j_ply, writer)(str(tmp_path / "jax.ply"), *args)
     assert (tmp_path / "port.ply").read_bytes() == (tmp_path / "jax.ply").read_bytes()
+
+
+def test_report_plys_match_jax_and_count_bytes(tmp_path, monkeypatch):
+    """A scene's three files through write_report_plys: the bytes of the
+    three JAX calls; each in a ply_write span that counts its bytes, the
+    last two reusing the first's positions."""
+    rng = np.random.default_rng(4)
+    n = 3000
+    pos = (rng.uniform(0, 1, (n, 3)) * [35, 35, 25]).astype(np.float32)
+    pos[:len(F32_EDGES), 2] = F32_EDGES
+    sem, gt_sem = rng.integers(0, 3, n), rng.integers(0, 3, n)
+    ins, gt_ins = rng.integers(-1, 40, n), rng.integers(-1, 40, n)
+    monkeypatch.setattr(ply, "_BLOCK", 1000)
+    names = ["sem.ply", "ins.ply", "color.ply"]
+    trace.drain()
+    with trace.span("scene", on=True):
+        ply.write_report_plys([str(tmp_path / f"port_{f}") for f in names], pos, sem, ins,
+                              gt_sem, gt_ins)
+    recs = trace.drain()
+    j_ply.to_eval_ply(str(tmp_path / "jax_sem.ply"), pos, sem, gt_sem)
+    j_ply.to_eval_ply(str(tmp_path / "jax_ins.ply"), pos, ins, gt_ins)
+    j_ply.to_ins_ply(str(tmp_path / "jax_color.ply"), pos, ins)
+    sizes = []
+    for f in names:
+        port = (tmp_path / f"port_{f}").read_bytes()
+        assert port == (tmp_path / f"jax_{f}").read_bytes(), f
+        sizes.append(len(port))
+    writes = sorted((r for r in recs if r.name == "ply_write"), key=lambda r: r.start_ns)
+    assert [r.counts["ply_bytes"] for r in writes] == sizes
+    assert [r.counts.get("ply_xyz_reused", 0) for r in writes] == [0, 1, 1]
 
 
 # ----------------------------------------------------- voxelization, tiling

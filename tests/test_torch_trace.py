@@ -8,6 +8,7 @@ saw before the recorder stood behind it, and the spans and counts the
 recorder keeps there."""
 
 import contextlib
+import os
 import threading
 
 import numpy as np
@@ -359,6 +360,19 @@ def test_served_scene_phases_and_units(recorder, tmp_path):
     assert by[move.parent].name == "model" and move.counts == {"host_syncs": 0}
     report = next(r for r in recs if r.name == "report")
     assert report.unit == scene.id and _children(recs, report) == ["ply_write"] * 3
+    # the three files' bytes, and the positions formatted once for all three
+    writes = sorted((r for r in recs if r.name == "ply_write"), key=lambda r: r.start_ns)
+    names = ["Semantic_results_forEval_0.ply", "Instance_Results_forEval0.ply",
+             "Instance_results_withColor_0.ply"]
+    assert [r.counts["ply_bytes"] for r in writes] == [
+        os.path.getsize(os.path.join(out_dir, f)) for f in names]
+    assert sum(r.counts.get("ply_xyz_reused", 0) for r in writes) == 2
     pulls = [r for r in recs if r.name == "sync::pull"]
     assert len(pulls) == dispatches and {by[r.parent].name for r in pulls} == {"extract"}
     assert {r.unit for r in recs if r.name == "sync::grow"} == {scene.id}
+    # with make_submission false no PLY is written, and neither counter is
+    evaluator.run(out_dir=str(tmp_path / "noply"), **{**kwargs, "ply_output": False})
+    recs = trace.drain()
+    assert any(r.name == "report" for r in recs)
+    assert not any({"ply_bytes", "ply_xyz_reused"} & set(r.counts or ()) for r in recs)
+    assert not any(f.endswith(".ply") for f in os.listdir(tmp_path / "noply"))

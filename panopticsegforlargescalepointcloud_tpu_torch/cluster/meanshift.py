@@ -201,7 +201,9 @@ def _dedup_keep(alive: torch.Tensor, order: torch.Tensor, near: torch.Tensor) ->
     seeds before it, so the rule has one fixed point, the sequential greedy
     result, and iterating it from ``alive`` settles one more position of
     ``order`` per round. The loop ends at the first round that changes
-    nothing (one host check per round), after at most S rounds."""
+    nothing (one host check per round: a ``dedup`` host read and an
+    ``ms_dedup_rounds`` count, :mod:`..utils.trace`), after at most S
+    rounds."""
     b, s = alive.shape
     rank = torch.empty_like(order)
     rank.scatter_(1, order, torch.arange(s, device=order.device).expand(b, s).contiguous())
@@ -209,6 +211,7 @@ def _dedup_keep(alive: torch.Tensor, order: torch.Tensor, near: torch.Tensor) ->
     keep = alive
     for _ in range(s):
         new = alive & ~(keep[:, :, None] & sup).any(dim=1)
+        trace.count("ms_dedup_rounds")
         with trace.host_read("dedup"):
             same = torch.equal(new, keep)
         if same:
@@ -255,7 +258,8 @@ def mean_shift(x: torch.Tensor, valid: torch.Tensor, bandwidth: float,
                           stable=True)
     ss = (seeds * seeds).sum(dim=-1)
     near = (ss[:, :, None] + ss[:, None, :] - 2.0 * (seeds @ seeds.transpose(1, 2))) <= bw2
-    keep = _dedup_keep(alive, order, near)
+    with trace.span("ms_dedup"):
+        keep = _dedup_keep(alive, order, near)
 
     keep_o = torch.gather(keep, 1, order)
     rank = torch.cumsum(keep_o.to(torch.int64), dim=1) - 1

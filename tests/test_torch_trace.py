@@ -39,6 +39,9 @@ FORWARD = ["hierarchy", "backbone_heads", "region_growing", "mean_shift", "score
 # program's phases were before the recorder
 TRAIN_STEP = FORWARD + ["losses", "backward", "optimizer"]
 DISPATCH = ["collate"] + FORWARD + ["extract", "extract", "merge"]
+# Setting I's full step (the embed family, strategy 7): mean shift on the
+# embedding is the only clustering, and no ScoreNet runs
+EMBED_STEP = ["hierarchy", "backbone_heads", "mean_shift", "losses", "backward", "optimizer"]
 
 
 class Hook:
@@ -270,14 +273,19 @@ def test_eval_forward_phases(recorder):
     assert hook.names == FORWARD
     recs = trace.drain()
     phases = [r.name for r in sorted(recs, key=lambda r: r.start_ns)
-              if not r.name.startswith("sync::")]
+              if not r.name.startswith("sync::") and r.name != "ms_dedup"]
     assert phases == FORWARD
     # with no unit open, each hooked phase is a root, and the host reads of
-    # region growing's rounds, the dedup and the constants land inside them
+    # region growing's rounds, the dedup (inside mean shift's ms_dedup span)
+    # and the constants land inside them
     assert {r.parent for r in recs if r.name in FORWARD} == {0}
     by = _by_id(recs)
+    (dedup,) = [r for r in recs if r.name == "ms_dedup"]
+    assert by[dedup.parent].name == "mean_shift"
     inner = [r for r in recs if r.name.startswith("sync::")]
-    assert inner and all(by[r.parent].name in FORWARD for r in inner)
+    assert inner and all(by[r.parent].name in FORWARD for r in inner
+                         if r.name != "sync::dedup")
+    assert {r.parent for r in inner if r.name == "sync::dedup"} == {dedup.id}
     assert sum((r.counts or {}).get("grow_rounds", 0) for r in recs
                if r.name == "region_growing") >= 1
 
@@ -306,6 +314,32 @@ def test_train_step_phases(recorder):
     assert sum(r.counts["host_syncs"] for r in syncs) == len(syncs)
     rounds = sum((r.counts or {}).get("grow_rounds", 0) for r in recs)
     assert rounds == sum(r.name == "sync::grow" for r in recs) >= 1
+
+
+def test_embed_train_step_phases(recorder):
+    cfg = PanopticConfig(num_classes=9, stuff_classes=(0, 7, 8), num_samples=2,
+                         model_family="embed", cluster_type=7, use_score_net=False, **CFG)
+    model = _model(cfg, 3).to("cpu")
+    opt = make_optimizer("Adam", model.parameters(), 0.0)
+    hook = Hook()
+    step = make_train_step(cfg, model, opt, make_lr_schedule("ExponentialLR", {}, 1e-3, 750),
+                           with_clustering=True, device="cpu", timer=hook)
+    metrics = step(_arrays(9, (0, 7, 8), 2, 3), 0.1)
+    assert np.isfinite(float(metrics["loss"])) and "score_loss" not in metrics
+    assert hook.names == EMBED_STEP
+    recs = trace.drain()
+    (root,) = [r for r in recs if r.parent == 0]
+    assert root.name == "train_step" and _children(recs, root) == EMBED_STEP
+    by = _by_id(recs)
+    # one mean-shift call, whose dedup is one ms_dedup span: each round of
+    # its loop is one sync::dedup host read and one ms_dedup_rounds count
+    (dedup,) = [r for r in recs if r.name == "ms_dedup"]
+    assert by[dedup.parent].name == "mean_shift"
+    reads = [r for r in recs if r.name == "sync::dedup"]
+    assert 1 <= len(reads) <= cfg.ms_max_seeds and {r.parent for r in reads} == {dedup.id}
+    assert dedup.counts == {"ms_dedup_rounds": len(reads)}
+    assert sum((r.counts or {}).get("ms_dedup_rounds", 0) for r in recs) == len(reads)
+    assert not any(r.name in ("region_growing", "scorenet", "sync::grow") for r in recs)
 
 
 def _forest(path, seed):

@@ -37,7 +37,11 @@
    full step with the kernels and one with the plain versions, which must
    agree on losses, gradients and proposals; then the shipped bf16 steps, 5
    prepare and 3 full, timed per step and per phase, with launches per step
-   and peak memory.
+   and peak memory; then, for Settings IV and I, the backbone and heads
+   replayed as CUDA graphs against the eager step ("backbone graph" lines:
+   BN statistics equal bit for bit after the capturing step, the distances
+   of losses, gradients and weights beside two eager runs' own, replays,
+   captures and launches per step).
 5. Kernel E, the per-part probe of A: each part (full, index, gather,
    contig) against its plain version at the L0 same 16->16 and L1->L0 up
    64->64 maps, ``full`` bit for bit against A; then the probe's own path
@@ -1071,6 +1075,107 @@ def train_step_f32(cfg32, arrays, seed: int, tag: str = "train step f32 kernel v
     return fails, losses
 
 
+def backbone_graph_steps(cfg, arrays, seed: int, n_prepare: int = 2, n_full: int = 3,
+                         tag: str = "backbone graph"):
+    """The train step's backbone and heads as CUDA graphs
+    (``models/graphed.py``) against the eager step: three models from the
+    same init take the same ``n_prepare`` prepare and ``n_full`` full bf16
+    steps, two held eager by a no-op forward hook (a hooked model does not
+    engage the graphs) and one graphed. After each step the graphed model's
+    losses, gradients, BN statistics and weights are held against the first
+    eager model's, beside the two eager models' own distance (the losses'
+    scatter-adds round in the order their atomics land). After the first
+    step the BN statistics, which only the forward moves, must be equal bit
+    for bit: the capture's warm-up is undone. Each graphed step must replay
+    two graphs (``graph_replays``), capture once in all (``graph_captures``)
+    and count the eager step's launches of A, dX and D (the capturing step
+    more: its warm-up's). Returns (record, failures)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import flagship_training
+    from panopticsegforlargescalepointcloud_tpu_torch.train import make_train_step
+    from panopticsegforlargescalepointcloud_tpu_torch.utils import trace
+
+    def hook(name):
+        return contextlib.nullcontext()
+
+    runs = {}
+    for name in ("eager", "eager_again", "graphed"):
+        state, schedule, tc = flagship_training(cfg, seed)
+        if name != "graphed":
+            state.model.semantic_out.register_forward_hook(lambda *a: None)
+        runs[name] = (state, schedule, tc)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(float(b.double().abs().max()),
+                                                                   1e-30)
+
+    fails, steps = [], []
+    trace.drain()
+    for i in range(n_prepare + n_full):
+        clustering = i >= n_prepare
+        got = {}
+        for name, (state, schedule, tc) in runs.items():
+            step = make_train_step(cfg, state.model, state.optimizer, schedule, clustering,
+                                   tc.grad_clip_value, timer=hook)
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(arrays, state.bn_momentum)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: v - before[k] for k, v in read_counts().items()}
+            recs = trace.drain()
+            model = state.model
+            got[name] = dict(
+                ms=ms, losses={k: float(v) for k, v in m.items()}, launches=counts,
+                grads={n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                stats={n: b.detach().clone() for n, b in model.named_buffers()},
+                weights={n: p.detach().clone() for n, p in model.named_parameters()},
+                replays=sum((r.counts or {}).get("graph_replays", 0) for r in recs),
+                captures=sum((r.counts or {}).get("graph_captures", 0) for r in recs))
+        row = dict(step=i, phase="full" if clustering else "prepare",
+                   ms={n: g["ms"] for n, g in got.items()})
+        for other in ("eager_again", "graphed"):
+            a, b = got[other], got["eager"]
+            row[other] = dict(
+                loss_rel=max(abs(a["losses"][k] - v) / max(abs(v), 1e-30)
+                             for k, v in b["losses"].items()),
+                grad_rel=max(rel(a["grads"][n], g) for n, g in b["grads"].items()),
+                stats_rel=max(rel(a["stats"][n], s) for n, s in b["stats"].items()),
+                stats_equal=all(torch.equal(a["stats"][n], s) for n, s in b["stats"].items()),
+                weight_rel=max(rel(a["weights"][n], w) for n, w in b["weights"].items()))
+        g, e = got["graphed"], got["eager"]
+        row.update(replays=g["replays"], captures=g["captures"],
+                   launches={n: {k: got[n]["launches"][k] for k in ("A", "A_dx", "D")}
+                             for n in ("eager", "graphed")})
+        steps.append(row)
+        log(tag, json.dumps(row))
+        if not all(math.isfinite(v) for v in g["losses"].values()):
+            fails.append(f"{tag} step {i}: non-finite losses {g['losses']}")
+        if g["replays"] != 2 or e["replays"] != 0:
+            fails.append(f"{tag} step {i}: {g['replays']} graph replays ({e['replays']} eager)")
+        if g["captures"] != (1 if i == 0 else 0):
+            fails.append(f"{tag} step {i}: {g['captures']} captures")
+        # the capturing step also ran the capture's warm-up
+        lg, le = row["launches"]["graphed"], row["launches"]["eager"]
+        if (lg != le) if i else any(lg[k] < le[k] for k in le):
+            fails.append(f"{tag} step {i}: launches {row['launches']}")
+        # the losses' scatter-adds round in the order their atomics land
+        if i == 0 and row["graphed"]["loss_rel"] > 1e-5:
+            fails.append(f"{tag} step 0: losses differ from the eager step's by "
+                         f"{row['graphed']['loss_rel']}")
+        if i == 0 and not row["graphed"]["stats_equal"]:
+            fails.append(f"{tag} step 0: BN statistics differ from the eager step's "
+                         f"({row['graphed']['stats_rel']})")
+    ms = {n: statistics.median(r["ms"][n] for r in steps[1:]) for n in runs}
+    rec = dict(steps=steps, ms_per_step_median=ms,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(tag + " summary", json.dumps(dict(ms_per_step_median=ms,
+                                          peak_mem_gib=rec["peak_mem_gib"])))
+    return rec, fails
+
+
 def train_steps_bf16(cfg, arrays, seed: int, n_prepare: int = 5, n_full: int = 3,
                      tag: str = "train steps bf16"):
     """The shipped bf16 train steps at full width: ``n_prepare`` prepare
@@ -1992,26 +2097,18 @@ def point_backbones_path(tmp: str, arrays, seed: int):
 
 @contextlib.contextmanager
 def edge_iterations(found: list):
-    """Record the iteration count of every edge-path propagation
-    (``cluster/region_grow.py:_grow_on_edges`` logs it at debug level)."""
-    import logging
+    """Record the propagation rounds of every region-growing phase: the
+    recorder's ``grow_rounds`` counts (``cluster/region_grow.py`` counts one
+    a round), summed in each span that holds them."""
+    from panopticsegforlargescalepointcloud_tpu_torch.utils import trace
 
-    # the module, which cluster/__init__.py shadows with its function region_grow
-    region_grow = importlib.import_module(
-        "panopticsegforlargescalepointcloud_tpu_torch.cluster.region_grow")
-
-    class Handler(logging.Handler):
-        def emit(self, record):
-            found.append(record.args[0])
-
-    handler, level = Handler(), region_grow.log.level
-    region_grow.log.addHandler(handler)
-    region_grow.log.setLevel(logging.DEBUG)
+    trace.drain()
     try:
-        yield found
+        with trace.span("edge_iterations", on=True):
+            yield found
     finally:
-        region_grow.log.removeHandler(handler)
-        region_grow.log.setLevel(level)
+        found += [r.counts["grow_rounds"] for r in trace.drain()
+                  if (r.counts or {}).get("grow_rounds")]
 
 
 def variant_f32(cfg32, arrays, seed: int, name: str):
@@ -3262,6 +3359,13 @@ def main() -> int:
     fails += train_step_f32(cfg32, arrays, seed=5)[0]
     train_launches, train_res, f = train_steps_bf16(cfg, arrays, seed=5)
     fails += f
+    reset_counts()
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import SETTINGS
+    for name, models in (("", SETTINGS["IV"]), ("setting I ", SETTINGS["I"])):
+        graph_cfg = flagship_config(num_samples=4, compute_dtype="bfloat16", models=models)
+        fails += backbone_graph_steps(graph_cfg, arrays, seed=5,
+                                      tag=f"{name}backbone graph")[1]
+    reset_counts()
     valid_rows = int(db.grid.mask.sum())
     log("train step summary", json.dumps({
         phase: dict(ms_per_step=r["ms_per_step_median"],

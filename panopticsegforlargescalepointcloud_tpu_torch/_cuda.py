@@ -7,7 +7,9 @@ beside this file, keyed by a hash of the sources and flags, on first use:
 importing this module builds nothing.
 
 Every kernel wrapper owns a :class:`Kernel`, whose ``launches`` counter goes
-up by one for each launch of its kernel and nowhere else.
+up by one for each launch of its kernel: by its call, or by the replay of a
+CUDA graph that holds the launch (:data:`KERNELS`,
+``models/graphed.py``).
 """
 
 from __future__ import annotations
@@ -124,6 +126,9 @@ PTR = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
 
+# every Kernel made, so that a CUDA graph's replay adds the launches it holds
+KERNELS: list = []
+
 
 class Kernel:
     """One C entry point of the library plus its launch counter."""
@@ -138,6 +143,7 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def __call__(self, *args) -> None:
         if self._fn is None:

@@ -6,7 +6,9 @@ rows are zeroed on output and statistics are f32. In training mode
 over the valid rows and updates the running statistics; in eval mode the
 running statistics normalize. Momentum follows torch (new = (1 - m) *
 running + m * batch) and is a call argument, as in the JAX package, so a
-scheduler changes it per step without touching the modules.
+scheduler changes it per step without touching the modules: a float, or a
+0-dim f32 tensor on the device (:func:`momentum_tensor`), which the train
+step uploads once and hands to every BN, so that no BN call reads the host.
 """
 
 from __future__ import annotations
@@ -15,6 +17,16 @@ import torch
 from torch import nn
 
 from ..utils import trace
+
+
+def momentum_tensor(momentum, device) -> torch.Tensor:
+    """The BN momentum as a 0-dim f32 tensor on ``device``: a tensor as it
+    is (cast and moved where it differs), a float uploaded, one blocking
+    host read (``sync::bn_momentum``)."""
+    if isinstance(momentum, torch.Tensor):
+        return momentum.to(device=device, dtype=torch.float32)
+    with trace.host_read("bn_momentum"):
+        return torch.as_tensor(momentum, dtype=torch.float32, device=device)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -44,8 +56,7 @@ class MaskedBatchNorm(nn.Module):
             # they keep the unbiased variance, while the batch is normalized
             # with the biased one.
             with torch.no_grad():
-                with trace.host_read("bn_momentum"):
-                    mom = torch.as_tensor(momentum, dtype=torch.float32, device=x.device)
+                mom = momentum_tensor(momentum, x.device)
                 unbiased = var * (cnt / torch.clamp(cnt - 1.0, min=1.0))
                 self.mean.copy_((1.0 - mom) * self.mean + mom * mean)
                 self.var.copy_((1.0 - mom) * self.var + mom * unbiased)

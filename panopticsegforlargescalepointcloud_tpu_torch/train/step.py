@@ -25,8 +25,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..models import graphed
 from ..models.modules import ResBlock, SparseConv
-from ..models.norm import MaskedBatchNorm
+from ..models.norm import MaskedBatchNorm, momentum_tensor
 from ..models.point_backbones import KPConvDeformableLayer, KPConvLayer
 from ..models.pointgroup3heads import (
     PanopticConfig,
@@ -114,16 +115,22 @@ def panoptic_forward(cfg: PanopticConfig, model: PointGroup3HeadsNet, db: Device
     decides the BN statistics (``model.train()``: batch statistics, running
     statistics updated with ``momentum``, and the deformable KPConv's
     regularizers in ``internal_losses``) and the caller's grad mode whether
-    a graph is built. Clustering runs on detached heads; the scores keep
-    their gradient to the backbone. ``subset_seed``: the embed family's
+    a graph is built; a CUDA training forward with grad replays the sparse
+    UNet's backbone and heads as CUDA graphs (:mod:`..models.graphed`).
+    Clustering runs on detached heads; the scores keep their gradient to
+    the backbone. ``subset_seed``: the embed family's
     subset counter (:func:`..models.pointgroup3heads.build_proposals`).
     ``timer(name)``, when given, returns a context manager wrapped around
     each phase. ``epoch``: the mask head's epoch gates
     (:meth:`..models.pointgroup3heads.PanopticConfig.gates`; None opens
     them)."""
     with trace.phase(timer, "backbone_heads"):
-        x, sem, off, emb, internal = model.backbone_heads(db.feats, hier, momentum,
-                                                          pos=db.pos)
+        if graphed.engaged(model, db.feats.device):
+            x, sem, off, emb = graphed.backbone_heads(model, db.feats, hier, momentum)
+            internal = None
+        else:
+            x, sem, off, emb, internal = model.backbone_heads(db.feats, hier, momentum,
+                                                              pos=db.pos)
     internal = internal or None
     if not with_clustering:
         return PanopticOutput(semantic_logits=sem, offset_logits=off, embed_logits=emb,
@@ -280,9 +287,10 @@ def make_loss_and_grads(cfg: PanopticConfig, model: PointGroup3HeadsNet, with_cl
                         epoch: Optional[int] = None):
     """``grads_of(arrays, bn_momentum, subset_seed) -> metrics``: the train
     step's forward in training mode (BN running statistics updated in
-    place), its losses and backward, leaving every parameter's gradient in
-    ``p.grad``: a parameter off this phase's path (the ScoreNet in the
-    prepare step) gets a zero gradient, as under ``jax.grad``, so that the
+    place, the momentum uploaded once for every BN), its losses and
+    backward, leaving every parameter's gradient in ``p.grad``: a parameter
+    off this phase's path (the ScoreNet in the prepare step) gets a zero
+    gradient, as under ``jax.grad``, so that the
     optimizer updates every parameter at every step. ``metrics`` holds every
     loss term, ``loss`` and ``hier_overflow`` as 0-dim tensors on the
     device. ``subset_seed``: the embed family's subset counter (None: the
@@ -297,11 +305,12 @@ def make_loss_and_grads(cfg: PanopticConfig, model: PointGroup3HeadsNet, with_cl
     def grads_of(arrays, bn_momentum, subset_seed) -> Dict[str, torch.Tensor]:
         model.train()
         with torch.no_grad(), trace.phase(timer, "hierarchy"):
+            momentum = momentum_tensor(bn_momentum, dev)  # one upload, for every BN
             db = canonicalize(*arrays, device=dev)
             hier = build_hierarchy(db.grid, cfg.num_down, device=dev)
         for p in params:
             p.grad = None
-        out = panoptic_forward(cfg, model, db, hier, with_clustering, bn_momentum, timer,
+        out = panoptic_forward(cfg, model, db, hier, with_clustering, momentum, timer,
                                subset_seed=subset_seed, epoch=epoch)
         with trace.phase(timer, "losses"):
             total, losses = panoptic_losses(cfg, out, db.y, db.vote_label, db.instance_labels,

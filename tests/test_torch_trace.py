@@ -316,6 +316,29 @@ def test_train_step_phases(recorder):
     assert rounds == sum(r.name == "sync::grow" for r in recs) >= 1
 
 
+def test_train_step_uploads_the_bn_momentum_once(recorder):
+    """One ``sync::bn_momentum`` a step, in its hierarchy phase with the
+    batch's uploads, however many BNs the backbone, heads and ScoreNet
+    run."""
+    cfg = PanopticConfig(num_classes=9, stuff_classes=(0, 7, 8), num_samples=2, **CFG)
+    model = _model(cfg, 1).to("cpu")
+    opt = make_optimizer("Adam", model.parameters(), 0.0)
+    step = make_train_step(cfg, model, opt, make_lr_schedule("ExponentialLR", {}, 1e-3, 750),
+                           with_clustering=True, device="cpu", timer=Hook())
+    arrays = _arrays(9, (0, 7, 8), 2, 2)
+    for _ in range(2):
+        step(arrays, 0.1)
+    recs = trace.drain()
+    roots = [r for r in recs if r.parent == 0]
+    assert [r.name for r in roots] == ["train_step"] * 2
+    by = _by_id(recs)
+    for root in roots:
+        reads = [r for r in recs if r.unit == root.id and r.name == "sync::bn_momentum"]
+        assert len(reads) == 1 and reads[0].counts == {"host_syncs": 1}
+        phase = by[reads[0].parent]
+        assert phase.name == "hierarchy" and phase.parent == root.id
+
+
 def test_embed_train_step_phases(recorder):
     cfg = PanopticConfig(num_classes=9, stuff_classes=(0, 7, 8), num_samples=2,
                          model_family="embed", cluster_type=7, use_score_net=False, **CFG)

@@ -10,26 +10,66 @@ each part of A's body with CUDA events at two shapes, in bf16 and f32: the
 probe's own shape, the L0 same-level map at 16 -> 16 channels, and A's
 slowest main-path shape, the L1 -> L0 up conv at 64 -> 64 (no ``contig``
 part there: it needs a same-level map). Per part it prints ms per call
-(calls back to back, ``bench_conv.cuda_ms``), device ms (calls queued
-behind a device sleep), ns per (tile, offset) and the part's bound (bytes
-over 3.35 TB/s, or operations over the type's peak where that is larger),
-one JSON object per line, after the card's name and power limit. A (tile, offset) is one of A's
-row tiles x Cout tiles (``ops/conv.py:conv_plan``) x 27 offsets. Needs a
-CUDA device.
+(calls back to back, :func:`cuda_ms`), device ms (calls queued behind a
+device sleep), ns per (tile, offset) and the part's bound (bytes over
+3.35 TB/s, or operations over the type's peak where that is larger), one
+JSON object per line, after the card's name and power limit. A (tile,
+offset) is one of A's row tiles x Cout tiles (``ops/conv.py:conv_plan``)
+x 27 offsets. Needs a CUDA device.
+
+This module also holds the chip timing primitives that ``chip_smoke.py``
+times its kernel phases with: :func:`cuda_ms`, :func:`card_line` and the
+H100's published peaks.
 """
 
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 from typing import Dict, List
 
 import torch
 
-from .bench_conv import HBM_BPS, PEAK_FLOPS, card_line, cuda_ms
 from .ops.conv import conv_plan
 from .ops.conv_parts import PARTS, sparse_conv_part
 from .ops.hierarchy import build_hierarchy
+
+# published H100 SXM peaks: HBM bytes/s, dense bf16 tensor-core FLOP/s,
+# f32 FLOP/s outside the tensor cores
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2, queued: bool = False) -> float:
+    """Mean ms per call of ``fn()`` over ``iters`` calls, between two CUDA
+    events. The calls are issued back to back, as a caller issues them: a
+    call whose host work takes longer than its device work is timed at the
+    host's rate. ``queued``: the calls wait behind a device sleep of ~25 ms,
+    so that the host has issued them all before the first runs, and each is
+    timed at the device's rate alone."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60,
+    )
+    return res.stdout.strip().splitlines()[0] if res.stdout.strip() else "unknown"
+
 
 def shapes(hier, f: int = 16):
     """(label, map, Cin, Cout, N_in, same-level) of the two timed convs."""

@@ -23,13 +23,13 @@ import argparse
 import dataclasses
 import json
 import os.path as osp
-import subprocess
 import tempfile
 import time
 
 import numpy as np
 import torch
 
+from .bench_conv_parts import card_line
 from .data import TREEINS_SPEC, PanopticFileDataset, batch_arrays, collate_tiles
 from .data.ply import write_ply
 from .device import resolve_device
@@ -63,14 +63,6 @@ def make_forest_ply(path, rng, n_trees=6, extent=16.0):
                      np.concatenate(sem).astype(np.int32),
                      np.concatenate(tid).astype(np.int32)],
               ["x", "y", "z", "semantic_seg", "treeID"])
-
-
-def card() -> str:
-    if not torch.cuda.is_available():
-        return "cpu"
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    return res.stdout.strip().splitlines()[0] if res.stdout.strip() else "unknown"
 
 
 def run(epochs: int = 48, steps: int = 10, device=None, seed: int = 0) -> dict:
@@ -135,7 +127,7 @@ def run(epochs: int = 48, steps: int = 10, device=None, seed: int = 0) -> dict:
         "s_per_step_median": {k: float(np.median(v)) for k, v in step_s.items() if v},
         "data_s_per_step": data_s / max(n, 1),
         "device": str(dev) if dev.type == "cpu" else torch.cuda.get_device_name(dev),
-        "card": card() if dev.type == "cuda" else "cpu",
+        "card": card_line() if dev.type == "cuda" else "cpu",
     }
 
 

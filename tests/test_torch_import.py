@@ -8,6 +8,8 @@ parts included, run their plain versions on CPU tensors without counting a
 launch."""
 
 import ast
+import importlib
+import importlib.util
 import json
 import pathlib
 import subprocess
@@ -41,6 +43,50 @@ def test_sources_import_no_jax(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _resolves(module: str, name: str) -> bool:
+    if hasattr(importlib.import_module(module), name):
+        return True
+    try:  # a submodule not imported yet
+        importlib.import_module(f"{module}.{name}")
+    except ModuleNotFoundError:
+        return False
+    return True
+
+
+def test_chip_smoke_imports_resolve():
+    # every name chip_smoke.py takes from the port, inside its functions too,
+    # exists: a helper deleted from the package fails here, not on the card
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    pkg = PKG.name
+    checked, missing = 0, []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name.split(".")[0] == pkg:
+                    importlib.import_module(a.name)
+                    checked += 1
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0 and node.module
+              and node.module.split(".")[0] == pkg):
+            for a in node.names:
+                checked += 1
+                if not _resolves(node.module, a.name):
+                    missing.append(f"{node.module}.{a.name} (line {node.lineno})")
+    assert checked > 0 and not missing, missing
+
+
+def test_chip_smoke_main_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.main() would run the whole check")
+    assert _load_chip_smoke().main() == 2
 
 
 def test_package_import_leaves_jax_unloaded():

@@ -45,7 +45,11 @@ check's steps and each path's seconds; end-to-end times are
    replayed as CUDA graphs against the eager step ("backbone graph" lines:
    BN statistics equal bit for bit after the capturing step, the distances
    of losses, gradients and weights beside two eager runs' own, replays,
-   captures and launches per step).
+   captures and launches per step); then the grid hierarchy's CUDA graph
+   against its eager build at the train batch's, an eval dispatch's and
+   the ScoreNet's signatures, 3 batches on one capture each, and 3 full
+   train steps that upload no constant table after the first ("hierarchy
+   graph" lines).
 5. Kernel E, the per-part probe of A: each part (full, index, gather,
    contig) against its plain version at the L0 same 16->16 and L1->L0 up
    64->64 maps, ``full`` bit for bit against A; then the probe's own path
@@ -1270,6 +1274,125 @@ def backbone_graph_steps(cfg, arrays, seed: int, n_prepare: int = 2, n_full: int
     log(tag + " summary", json.dumps(dict(ms_per_step_median=ms,
                                           peak_mem_gib=rec["peak_mem_gib"])))
     return rec, fails
+
+
+def hierarchy_graph_check(cfg, seed: int, capacity: int = 131072,
+                          tag: str = "hierarchy graph"):
+    """The grid hierarchy's CUDA graph (``ops/hierarchy.py``) against its
+    eager build at the three signatures the cells meet: the train batch
+    (``capacity`` rows, ``cfg.num_down``), an eval dispatch of 2 tiles
+    (half the rows) and the ScoreNet's grid (num_down 2 in ``cfg.scorer_layout``,
+    recorded from eval forwards of the train batches). Per signature, 3
+    distinct batches on one capture: each replay equal bit for bit to the
+    eager derived build and, where no level overflows, to the lookup build;
+    ``grids[0]`` the caller's own; the first replay's hierarchy, checked
+    after the later replays, unchanged (the outputs are copies). Then 3 bf16
+    full train steps: after the first, no constant table uploaded
+    (``ops/sparse.py:constant``) and no ``sync::constant`` inside a
+    ``hierarchy`` or ``hierarchy_graph`` span; ``hier_graph_replays`` one a
+    build, main and ScoreNet. Returns (record, failures)."""
+    import torch
+
+    from panopticsegforlargescalepointcloud_tpu_torch.flagship import (
+        build_inputs,
+        flagship_training,
+        random_model,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.models import pointgroup3heads
+    from panopticsegforlargescalepointcloud_tpu_torch.ops import hierarchy, sparse
+    from panopticsegforlargescalepointcloud_tpu_torch.train import (
+        canonicalize,
+        make_eval_forward,
+        make_train_step,
+    )
+    from panopticsegforlargescalepointcloud_tpu_torch.utils import trace
+
+    def counted(recs, name):
+        return sum((r.counts or {}).get(name, 0) for r in recs)
+
+    def identical(a, b):  # every tensor but grids[0]'s: dtype and bits
+        ta, tb = hierarchy.hierarchy_tensors(a), hierarchy.hierarchy_tensors(b)
+        return len(ta) == len(tb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                          for x, y in zip(ta, tb))
+
+    train_arrays = [build_inputs(capacity=capacity, seed=seed + i) for i in range(3)]
+    eval_arrays = [build_inputs(num_tiles=2, capacity=capacity // 2, seed=seed + 10 + i)
+                   for i in range(3)]
+    scorer = []
+    fwd = make_eval_forward(cfg, random_model(cfg, seed))
+    with captured(pointgroup3heads, "build_hierarchy", scorer):
+        for a in train_arrays:
+            fwd(a)
+    cases = [("train", [canonicalize(*a).grid for a in train_arrays], cfg.num_down,
+              sparse.DEFAULT_BITS),
+             ("eval", [canonicalize(*a).grid for a in eval_arrays], cfg.num_down,
+              sparse.DEFAULT_BITS),
+             ("scorenet", [s[0] for s in scorer], 2, cfg.scorer_layout)]
+    fails, rows = [], []
+    for name, grids, num_down, bits in cases:
+        hierarchy._GRAPHS.clear()
+        trace.drain()
+        with trace.span(tag, on=True):
+            got = [hierarchy.build_hierarchy(g, num_down, bits=bits) for g in grids]
+        recs = trace.drain()
+        caps = hierarchy.default_capacities(grids[0].capacity, num_down)
+        row = dict(signature=name, rows=grids[0].capacity, num_down=num_down,
+                   captures=counted(recs, "hier_graph_captures"),
+                   replays=counted(recs, "hier_graph_replays"), batches=[])
+        for i, (g, r) in enumerate(zip(grids, got)):
+            e = hierarchy.build_hierarchy_eager(g, num_down, caps, bits)
+            lk = hierarchy.build_hierarchy(g, num_down, bits=bits, map_mode="lookup")
+            overflow = r.overflow.tolist()
+            b = dict(valid_rows=int(g.mask.sum()), overflow=overflow,
+                     eager_identical=identical(r, e), lookup_identical=identical(r, lk),
+                     own_grid0=all(x is y for x, y in zip(r.grids[0], g)))
+            row["batches"].append(b)
+            if not (b["eager_identical"] and b["own_grid0"]):
+                fails.append(f"{tag} {name} batch {i}: replay differs from the eager build "
+                             f"({b})")
+            if not any(overflow) and not b["lookup_identical"]:
+                fails.append(f"{tag} {name} batch {i}: replay differs from the lookup build")
+        if any(torch.equal(a.keys, b.keys) for a, b in zip(grids, grids[1:])):
+            fails.append(f"{tag} {name}: the batches are not distinct")
+        if row["captures"] != 1 or row["replays"] != len(grids):
+            fails.append(f"{tag} {name}: {row['captures']} captures, {row['replays']} replays")
+        rows.append(row)
+        log(tag, json.dumps(row))
+
+    def hook(name):
+        return contextlib.nullcontext()
+
+    state, schedule, tc = flagship_training(cfg, seed)
+    step = make_train_step(cfg, state.model, state.optimizer, schedule, True,
+                           tc.grad_clip_value, timer=hook)
+    steps = []
+    for i, a in enumerate(train_arrays):
+        tables = len(sparse._CONSTANTS)
+        trace.drain()
+        step(a, state.bn_momentum)
+        recs = trace.drain()
+        by = {r.id: r for r in recs}
+
+        def in_hierarchy(r):
+            while r.parent in by:
+                r = by[r.parent]
+                if r.name in ("hierarchy", "hierarchy_graph"):
+                    return True
+            return False
+
+        uploads = [r for r in recs if r.name == "sync::constant"]
+        row = dict(step=i, new_tables=len(sparse._CONSTANTS) - tables,
+                   hierarchy_constant_syncs=sum(map(in_hierarchy, uploads)),
+                   constant_syncs=len(uploads), host_syncs=counted(recs, "host_syncs"),
+                   replays=counted(recs, "hier_graph_replays"),
+                   captures=counted(recs, "hier_graph_captures"))
+        steps.append(row)
+        log(tag + " train step", json.dumps(row))
+        if i and (row["new_tables"] or row["hierarchy_constant_syncs"] or row["captures"]):
+            fails.append(f"{tag} train step {i}: {row}")
+        if row["replays"] != 1 + bool(cfg.use_score_net):
+            fails.append(f"{tag} train step {i}: {row['replays']} hierarchy replays")
+    return dict(signatures=rows, train_steps=steps), fails
 
 
 def train_steps_bf16(cfg, arrays, seed: int, tag: str = "train steps bf16"):
@@ -3214,6 +3337,7 @@ def main() -> int:
         graph_cfg = flagship_config(num_samples=4, compute_dtype="bfloat16", models=models)
         fails += backbone_graph_steps(graph_cfg, arrays, seed=5,
                                       tag=f"{name}backbone graph")[1]
+    fails += hierarchy_graph_check(cfg, seed=5)[1]
     reset_counts()
     valid_rows = int(db.grid.mask.sum())
     log("train step summary", json.dumps({

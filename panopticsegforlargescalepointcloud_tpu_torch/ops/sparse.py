@@ -14,7 +14,7 @@ level above (:func:`derive_level_maps`): the stride-2 hierarchy doubles as a
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,24 @@ def _kernel_offsets(kernel_size: int) -> np.ndarray:
 KERNEL_OFFSETS_K3 = _kernel_offsets(3)
 KERNEL_OFFSETS_K2 = _kernel_offsets(2)
 KERNEL_OFFSETS_K1 = _kernel_offsets(1)
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def constant(table: np.ndarray, device) -> torch.Tensor:
+    """``torch.as_tensor(table, device=device)``, uploaded once a device.
+
+    The first call for a table's values on a device uploads them (under
+    ``trace.host_read("constant")``); every later call hands back the same
+    tensor, which no caller writes. Entries are never dropped: a captured
+    CUDA graph reads them by address (:func:`..hierarchy.build_hierarchy`)."""
+    table = np.ascontiguousarray(table)
+    key = (table.dtype.str, table.shape, table.tobytes(), torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with trace.host_read("constant"):
+            t = _CONSTANTS.setdefault(key, torch.tensor(table, device=device))
+    return t
 
 
 class SparseGrid(NamedTuple):
@@ -110,8 +128,7 @@ def same_level_map(
     k = kernel_offsets.shape[0]
     kq = (k - 1) // 2
     dev = grid.coords.device
-    with trace.host_read("constant"):
-        offs = torch.as_tensor(kernel_offsets[:kq], device=dev)
+    offs = constant(kernel_offsets[:kq], dev)
     q_coords = grid.coords[:, None, :] + offs[None, :, :]
     q_batch = grid.batch[:, None].expand(n, kq)
     invalid = (~grid.mask)[:, None].expand(n, kq)
@@ -177,7 +194,7 @@ def down_map(
     row at ``2 * coarse.coords[i] + offsets[k]`` (ME's stride-2 semantics
     in stride units). Returns [N_coarse, K] int32 into fine rows."""
     n, k = coarse.capacity, kernel_offsets.shape[0]
-    offs = torch.as_tensor(kernel_offsets, device=coarse.coords.device)
+    offs = constant(kernel_offsets, coarse.coords.device)
     q_coords = 2 * coarse.coords[:, None, :] + offs[None, :, :]
     return _lookup_offsets(fine, coarse.batch[:, None].expand(n, k), q_coords,
                            (~coarse.mask)[:, None].expand(n, k), bits)
@@ -195,7 +212,7 @@ def up_map(
     conv's weight at the negated offset, so an imported transpose kernel
     has its K axis reversed. Returns [N_fine, K] int32 into coarse rows."""
     n, k = fine.capacity, kernel_offsets.shape[0]
-    offs = torch.as_tensor(kernel_offsets, device=fine.coords.device)
+    offs = constant(kernel_offsets, fine.coords.device)
     cand = fine.coords[:, None, :] + offs[None, :, :]
     divisible = ((cand & 1) == 0).all(dim=-1)
     q_coords = torch.div(cand, 2, rounding_mode="floor")
@@ -219,7 +236,7 @@ def down_map_fine_side(
     dev = f.device
     cand = torch.stack([torch.div(f - 1, 2, rounding_mode="floor"),
                         torch.div(f + 1, 2, rounding_mode="floor")], dim=1)
-    choice = torch.as_tensor(_DOWN_CHOICE, device=dev)[None].expand(n, 8, 3)
+    choice = constant(_DOWN_CHOICE, dev)[None].expand(n, 8, 3)
     c_comb = torch.gather(cand, 1, choice)
     off = f[:, None, :] - 2 * c_comb
     valid = (off.abs() <= 1).all(dim=-1) & fine.mask[:, None]
@@ -331,9 +348,7 @@ def _pad_rows(table: torch.Tensor) -> torch.Tensor:
 
 def _parity_permute(table_nk: torch.Tensor, parity: torch.Tensor, perm: np.ndarray):
     """out[i, k] = table_nk[i, perm[parity[i], k]]."""
-    with trace.host_read("constant"):
-        p = torch.as_tensor(perm, device=table_nk.device)
-    p = p[parity.long()]
+    p = constant(perm, table_nk.device)[parity.long()]
     return torch.gather(table_nk, 1, p)
 
 
@@ -382,7 +397,7 @@ def derive_same_map(
     ok = fine.mask & (parent >= 0)
     pnbr = coarse_map[parent.clamp(min=0).long()]
     bricks = _parity_permute(pnbr, parity, _SAME_KOFF)
-    slots = torch.as_tensor(_SAME_SLOT, device=pnbr.device)[parity.long()]
+    slots = constant(_SAME_SLOT, pnbr.device)[parity.long()]
     rows = _slot_rows(slot_table, bricks, slots)
     return torch.where(ok[:, None], rows, torch.full_like(rows, -1))
 
@@ -392,8 +407,8 @@ def derive_down_map(coarse_map: torch.Tensor, slot_table: torch.Tensor) -> torch
     table: coarse c gathers fine 2c + o, slot o & 1 of brick c + (o >> 1)
     (the split form of :func:`derive_level_maps`' ``down``, equal to it)."""
     dev = coarse_map.device
-    bricks = coarse_map[:, torch.as_tensor(_DOWN_KOFF, device=dev)]
-    return _slot_rows(slot_table, bricks, torch.as_tensor(_DOWN_SLOT, device=dev)[None, :])
+    bricks = coarse_map[:, constant(_DOWN_KOFF, dev)]
+    return _slot_rows(slot_table, bricks, constant(_DOWN_SLOT, dev)[None, :])
 
 
 def derive_level_maps(
@@ -424,13 +439,9 @@ def derive_level_maps(
         ],
         dim=1,
     )  # [Nc, 64]
-    with trace.host_read("constant"):
-        dcol = torch.as_tensor(_BOX_DCOL64, device=dev)
-    down = dvals[:, dcol]
+    down = dvals[:, constant(_BOX_DCOL64, dev)]
 
     up = _parity_permute(pnbr, parity, _UP_KOFF)
-    with trace.host_read("constant"):
-        up_valid = torch.as_tensor(_UP_VALID, device=dev)
-    up_ok = up_valid[parity.long()] & fine.mask[:, None]
+    up_ok = constant(_UP_VALID, dev)[parity.long()] & fine.mask[:, None]
     up = torch.where(up_ok, up, torch.full_like(up, -1))
     return same, down, up
